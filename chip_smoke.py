@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch/CUDA port's main path once on one CUDA card.
+"""Drives the PyTorch/CUDA port's main paths once on one CUDA card.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout. It builds the port's CUDA kernels from
-``src/repro_torch/kernels/csrc`` (into ``build/kernels``), then runs these
-phases, each printing one JSON line; any failure exits non-zero:
+``src/repro_torch/kernels/csrc`` (into ``build/kernels``, one ``nvcc`` per
+source, all started together), then runs these phases, each printing one
+JSON line; any failure exits non-zero:
 
   card    nvidia-smi's name and power limit (also printed raw), torch's name
   build   the kernels' build, timed as set-up
   kernel  every kernel against its plain torch version on the card, at the
-          test sweep's shapes and the main path's, plus a NaN case and a
-          bitwise rerun check
+          test sweeps' shapes, the main paths' shapes (the calibrator's
+          dry-runs among them) and full width
+          (qwen3-1.7b attention and mamba2-1.3b SSD at 4,096 positions),
+          plus a NaN case and a bitwise rerun check
   main    the paper's §3 use case through the port's entry points: a Neubot
           farm of 8 things at 1 Hz → broker → Q1 and Q2 stream services
           (fetch → bounded buffer → spill to the store) for one simulated
@@ -20,40 +23,58 @@ phases, each printing one JSON line; any failure exits non-zero:
           checked against float64 numpy; the kernel's launch counter shows
           that the offloads ran it; then the analytics operators on the card
           against the same operators on the CPU
+  calibrate  the JITA-4DS path: ``KernelCalibrator()`` measures the flops
+          per record of three services (window_agg, ssd_scan,
+          flash_attention) from dry-runs of their kernels on the card,
+          ``calibrate_profiles`` and ``analytics_cost_model`` price them,
+          and a seeded trace of their DC fires runs through
+          ``Simulator(HintedVPTR(), cost)``; the launch counters show that
+          every kernel ran, and the card's calibrations equal the CPU's
+  paper4  the paper's §4 experiment (examples/vos_scheduler_demo.py) on the
+          port's core: six heuristics, 120 jobs each, a 70% power cap; the
+          VoS must equal the JAX package's, recorded below
   times   kernel, plain version and one library call by CUDA events at the
-          main path's shape and the fleet shape, beside the bound; the
-          host-to-device copy and ``run_window`` end to end; peak memory
+          main path's shape, the fleet shape and full width, beside the
+          bound; the host-to-device copy and ``run_window`` end to end; peak
+          memory
 
 Then one line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
 {...}}``. With no CUDA card it exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
+import math
+import random
 import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
+BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 SEED = 0
 N_THINGS, RATE_HZ, HOURS = 8, 1.0, 1.0
 Q2_RECORDS = 120 * 86400 * N_THINGS          # 82,944,000
 Q2_WINDOWS = (10_000, 1_000_000, 10_368_000, Q2_RECORDS)
 FLEET = (86_400, 1_024, 180, 60)              # T, C, window, stride: Q1 for 1,024 things
-# the sweep of tests/test_kernels_window.py: T, C, window, stride, agg, dtype
-SWEEP = ((600, 5, 180, 60, "max", "float32"),
-         (600, 5, 180, 60, "mean", "float32"),
-         (1024, 130, 256, 64, "sum", "float32"),
-         (777, 3, 120, 40, "min", "float32"),
-         (2000, 1, 500, 100, "mean", "float32"),
-         (512, 128, 128, 128, "max", "bfloat16"))
-RTOL_SUM = {"float32": 1e-5, "bfloat16": 1e-1}
 Q2_MEAN_RTOL = 1e-5
+# the JITA-4DS path: EngineConfig's defaults (scenario/engine.py) and the
+# calibrated services (Neubot Q1: MAX over 180 s every 60 s, so m = 3)
+ENGINE_CFG = SimpleNamespace(records_per_step=5_000, mxu_efficiency=0.5,
+                             dc_step_floor_s=1e-3)
+N_FIRES = 90
+# examples/vos_scheduler_demo.py on the JAX package: VoS per heuristic
+PAPER4_VOS = {"Simple": 83.20119626628816, "VPT": 167.51703734084728,
+              "VPTR": 140.88804074535503, "VPT-CPC": 117.44285432262758,
+              "VPT-JSPC": 94.17585420303756, "Hybrid": 122.83503565612259}
 
 
 class SmokeFailure(RuntimeError):
@@ -69,6 +90,302 @@ def require(ok: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
+def bits(t):
+    """The raw bits of a float32 or bfloat16 tensor, for bitwise compares."""
+    import torch
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def flash_inputs(dev, gen, B, Sq, Skv, H, KV, d, dtype):
+    import torch
+    dt = getattr(torch, dtype)
+    return tuple(torch.randn(shape, device=dev, generator=gen).to(dt)
+                 for shape in ((B, Sq, H, d), (B, Skv, KV, d), (B, Skv, KV, d)))
+
+
+def ssd_inputs(dev, gen, B, L, H, P, G, N, dtype):
+    """x, dt (post-softplus), A (negative), B_, C as the JAX sweep makes
+    them: x, B_ and C in ``dtype``, dt and A float32."""
+    import torch
+    dt = getattr(torch, dtype)
+    x = torch.randn(B, L, H, P, device=dev, generator=gen).to(dt)
+    dtt = torch.nn.functional.softplus(torch.randn(B, L, H, device=dev,
+                                                   generator=gen))
+    A = -torch.exp(torch.randn(H, device=dev, generator=gen) * 0.5)
+    Bm = (torch.randn(B, L, G, N, device=dev, generator=gen) * 0.3).to(dt)
+    Cm = (torch.randn(B, L, G, N, device=dev, generator=gen) * 0.3).to(dt)
+    return x, dtt, A, Bm, Cm
+
+
+def check_attention_and_ssd(dev, gen) -> dict:
+    """flash attention and the SSD scan against their plain versions on
+    the card: the sweeps, the calibrator's dry-run inputs (ones) and full
+    width. Returns the full-width max |err| by (kernel, dtype)."""
+    import torch
+    from repro_torch.kernels.flash_attention import (attention_reference,
+                                                     flash_attention)
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_reference
+    from repro_torch.kernels.sweeps import (FLASH_SWEEP, FLASH_TOL,
+                                            FULL_FLASH_BF16_ROW_RTOL,
+                                            FULL_SSD_RTOL, SSD_RTOL,
+                                            SSD_SWEEP, full_widths)
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # the plain version's
+    flash_full, ssd_full = full_widths()             # products in fp32
+
+    def check(name, out, again, ref, tol, scale=1.0, per_row=False):
+        """|kernel - plain| <= tol · scale over the output, or with
+        ``per_row`` <= tol · max|plain| of each row of the last axis (a
+        row of zeros must then be matched exactly)."""
+        torch.cuda.synchronize()
+        require(out.shape == ref.shape and out.dtype == ref.dtype,
+                f"{name}: shape {tuple(out.shape)} dtype {out.dtype}")
+        require(torch.equal(bits(out), bits(again)), f"{name}: rerun differs")
+        require(bool(torch.isfinite(out.float()).all()), f"{name}: not finite")
+        diff = (out.float() - ref.float()).abs()
+        err = float(diff.max())
+        if per_row:
+            row_err, row_max = diff.amax(-1), ref.float().abs().amax(-1)
+            require(bool((row_err <= tol * row_max).all()),
+                    f"{name}: a row's max |kernel - plain| > {tol} * its "
+                    f"max|plain|")
+            rel = torch.where(row_max > 0, row_err / row_max, row_err)
+            emit("kernel", case=name, max_abs_err=err,
+                 max_row_err_over_row_max=float(rel.max()),
+                 tolerance=f"|err| <= {tol} * max|plain| per row")
+        else:
+            require(err <= tol * scale,
+                    f"{name}: max |kernel - plain| {err} > {tol} * {scale}")
+            emit("kernel", case=name, max_abs_err=err, tolerance=tol * scale)
+        return err
+
+    full = {}
+    cases = list(FLASH_SWEEP) + [(*flash_full, dt)
+                                 for dt in ("bfloat16", "float32")]
+    for B, Sq, Skv, H, KV, d, causal, dt in cases:
+        q, k, v = flash_inputs(dev, gen, B, Sq, Skv, H, KV, d, dt)
+        name = f"flash[{B},{Sq},{Skv},{H},{KV},{d}] causal={causal} {dt}"
+        at_full = (B, Sq, Skv, H, KV, d, causal) == flash_full
+        row = at_full and dt == "bfloat16"
+        err = check(name, flash_attention(q, k, v, causal=causal),
+                    flash_attention(q, k, v, causal=causal),
+                    attention_reference(q, k, v, causal=causal),
+                    FULL_FLASH_BF16_ROW_RTOL if row else FLASH_TOL[dt],
+                    per_row=row)
+        if at_full:
+            full[("flash", dt)] = err
+        del q, k, v
+    ones = torch.ones(1, 256, 2, 64, device=dev)         # the dry-run's
+    check("flash calibrator dry-run [1,256,2,64] ones",
+          flash_attention(ones, ones, ones), flash_attention(ones, ones, ones),
+          attention_reference(ones, ones, ones), FLASH_TOL["float32"])
+
+    cases = list(SSD_SWEEP) + [(*ssd_full, dt)
+                               for dt in ("bfloat16", "float32")]
+    for B, L, H, P, G, N, chunk, dt in cases:
+        args = ssd_inputs(dev, gen, B, L, H, P, G, N, dt)
+        ref = ssd_scan_reference(*args)
+        at_full = (B, L, H, P, G, N, chunk) == ssd_full
+        err = check(f"ssd[{B},{L},{H},{P},{G},{N}] chunk={chunk} {dt}",
+                    ssd_scan(*args, chunk=chunk), ssd_scan(*args, chunk=chunk),
+                    ref, (FULL_SSD_RTOL if at_full else SSD_RTOL)[dt],
+                    float(ref.float().abs().max()))
+        if at_full:
+            full[("ssd", dt)] = err
+        del args, ref
+    x, dtt = torch.ones(1, 128, 2, 64, device=dev), torch.ones(
+        1, 128, 2, device=dev) * 0.1
+    A, Bm = -torch.ones(2, device=dev), torch.ones(1, 128, 1, 16, device=dev)
+    ref = ssd_scan_reference(x, dtt, A, Bm, Bm)
+    check("ssd calibrator dry-run [1,128,2,64] N=16 ones",
+          ssd_scan(x, dtt, A, Bm, Bm, chunk=64),
+          ssd_scan(x, dtt, A, Bm, Bm, chunk=64), ref, SSD_RTOL["float32"],
+          float(ref.abs().max()))
+    return full
+
+
+def calibrated_services():
+    """Three services, one per operator family: Neubot Q1 (MAX over 180 s
+    every 60 s) on window_agg, and two analytics services on ssd_scan and
+    flash_attention."""
+    from repro_torch.scenario import ServiceSLO
+    slo = ServiceSLO(soft_latency_s=0.05, hard_latency_s=0.5, gamma=2.0)
+    return [SimpleNamespace(name="q1_max", operator="window_agg", agg="max",
+                            width_s=180.0, slide_s=60.0, slo=slo,
+                            bytes_per_record=8.0),
+            SimpleNamespace(name="ssm", operator="ssd_scan", agg="mean",
+                            width_s=120.0, slide_s=60.0, slo=slo,
+                            bytes_per_record=64.0),
+            SimpleNamespace(name="attn", operator="flash_attention",
+                            agg="mean", width_s=60.0, slide_s=60.0, slo=slo,
+                            bytes_per_record=512.0)]
+
+
+def fire_tasks(profiles, cost, n=N_FIRES, seed=SEED):
+    """A seeded trace of DC fires built the way the JAX package's
+    ScenarioEngine._make_task builds them: one task per fire,
+    ceil(window / records_per_step) steps on the plan's chips, the SLO
+    shifted by the delay before the task, the plan's DVFS hint."""
+    from repro_torch.core.tasks import Task, TaskType
+    rng = random.Random(seed)
+    names, ts, out = sorted(profiles), 0.0, []
+    for tid in range(n):
+        name = names[tid % len(names)]
+        ts += rng.expovariate(1 / 0.02)
+        arrival = ts + rng.uniform(0.0, 0.05)
+        n_window = rng.randint(1_000, 400_000)
+        chips = rng.choice((4, 8, 16, 32))
+        tt = TaskType(f"svc:{name}", "window", allowable_chips=(chips,))
+        task = Task(tid=tid, ttype=tt, arrival=arrival,
+                    steps=max(1, math.ceil(n_window
+                                           / ENGINE_CFG.records_per_step)),
+                    value=profiles[name].slo.value_spec(arrival - ts + 0.01),
+                    hbm_bytes=cost.hbm_bytes(f"svc:{name}", "window"))
+        task.dvfs_hint = rng.choice((1.0, 0.8, 0.6))
+        out.append(task)
+    return out
+
+
+def calibration_path() -> dict:
+    """KernelCalibrator() on the card → calibrate_profiles →
+    analytics_cost_model → Simulator(HintedVPTR(), cost). Returns the
+    launches of each kernel in this run."""
+    from repro_torch.core.simulator import Simulator
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bshd
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_blh
+    from repro_torch.kernels.window_agg.kernel import segment_reduce
+    from repro_torch.scenario import (HintedVPTR, KernelCalibrator,
+                                      analytics_cost_model, calibrate_profiles)
+
+    counters = {"window_agg": segment_reduce, "flash_attention":
+                flash_attention_bshd, "ssd_scan": ssd_scan_blh}
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    services = calibrated_services()
+    profiles, cal = calibrate_profiles(SimpleNamespace(services=services),
+                                       KernelCalibrator())
+    cost = analytics_cost_model(profiles, ENGINE_CFG)
+    res = Simulator(HintedVPTR(), cost).run(fire_tasks(profiles, cost))
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+
+    require(all(n > 0 for n in launches.values()),
+            f"a kernel of the calibration path never launched: {launches}")
+    require(cal.device.type == "cuda", f"calibrator on {cal.device}")
+    require(len(cal.log) == 3
+            and all(c.source == "flop-counter" for c in cal.log),
+            f"calibrations: {cal.report()}")
+    cpu = [KernelCalibrator(device="cpu").measure(c.operator, agg=c.agg,
+                                                  m=c.m) for c in cal.log]
+    require(cpu == cal.log, f"card {cal.report()} != CPU {cpu}")
+    require(math.isfinite(res.vos) and res.vos > 0
+            and res.completed + res.dropped == N_FIRES
+            and math.isfinite(res.total_energy_j),
+            f"priced trace: vos {res.vos}, {res.completed} done, "
+            f"{res.dropped} dropped")
+    emit("calibrate", launches=launches, calibrations=cal.report(),
+         cells={f"{a}|{s}": list(dataclasses.astuple(c))
+                for (a, s), c in cost.cells.items()},
+         fires=N_FIRES, vos=res.vos, vos_normalized=res.vos_normalized,
+         completed=res.completed, dropped=res.dropped,
+         energy_j=res.total_energy_j, seconds=wall)
+    return launches
+
+
+def paper4() -> None:
+    """examples/vos_scheduler_demo.py on the port's core."""
+    from repro_torch import hardware as hw
+    from repro_torch.core.costmodel import CostModel
+    from repro_torch.core.heuristics import HEURISTICS
+    from repro_torch.core.simulator import Simulator
+    from repro_torch.core.tasks import PAPER_REGIME, TaskType, WorkloadGenerator
+
+    cost = CostModel.analytic()
+    types = [TaskType(a, s)
+             for a in ("smollm-135m", "qwen3-1.7b", "yi-6b", "olmoe-1b-7b",
+                       "jamba-v0.1-52b", "mamba2-1.3b")
+             for s in ("train_4k", "prefill_32k", "decode_32k")]
+    gen = WorkloadGenerator(types, cost, seed=7, **PAPER_REGIME)
+    cap = hw.pod_power_cap_w(0.70)
+    rows = {}
+    for name, want in PAPER4_VOS.items():
+        r = Simulator(HEURISTICS[name], cost, power_cap_w=cap).run(
+            copy.deepcopy(gen.trace(120)))
+        require(r.vos == want, f"§4 {name}: VoS {r.vos!r} != {want!r}")
+        rows[name] = {"vos": r.vos, "completed": r.completed,
+                      "dropped": r.dropped, "energy_j": r.total_energy_j}
+    emit("paper4", heuristics=rows, power_cap_w=cap)
+
+
+def time_attention_and_ssd(dev, gen, cuda_ms, smi0) -> dict:
+    """Kernel, plain version and library call at full width by CUDA
+    events, beside the bound; returns the timings by (kernel, dtype)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import attention_reference
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bshd
+    from repro_torch.kernels.flash_attention.ops import flash_attention_flops
+    from repro_torch.kernels.ssd_scan import ssd_scan_reference
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_blh
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan_flops
+    from repro_torch.kernels.sweeps import full_widths
+
+    def bound(nbytes, flops, dt):
+        peak = BF16_OPS_PER_S if dt == "bfloat16" else FP32_OPS_PER_S
+        t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+        return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+    flash_full, ssd_full = full_widths()
+    timed = {}
+    for dt in ("bfloat16", "float32"):
+        B, Sq, Skv, H, KV, d, causal = flash_full
+        q, k, v = flash_inputs(dev, gen, B, Sq, Skv, H, KV, d, dt)
+        nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+        flops = flash_attention_flops(q.shape, k.shape, causal)
+        b_ms, b_by = bound(nbytes, flops, dt)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        t = {"ms": cuda_ms(lambda: flash_attention_bshd(q, k, v,
+                                                       causal=causal), 10, 2),
+             "plain_ms": cuda_ms(lambda: attention_reference(
+                 q, k, v, causal=causal), 5, 1),
+             # SDPA's is_causal is top-left aligned: the same mask at Sq = Skv
+             "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, is_causal=True, enable_gqa=True), 10, 2),
+             "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
+             "bytes": nbytes}
+        timed[("flash", dt)] = t
+        emit("times", case="flash_attention qwen3-1.7b", shape=[list(q.shape),
+             list(k.shape)], dtype=dt, causal=causal, nvidia_smi=smi0,
+             library="scaled_dot_product_attention(is_causal, enable_gqa)",
+             **t)
+        del q, k, v, qt, kt, vt
+
+        B, L, H, P, G, N, chunk = ssd_full
+        x, dtt, A, Bm, Cm = ssd_inputs(dev, gen, B, L, H, P, G, N, dt)
+        nbytes = sum(a.numel() * a.element_size()
+                     for a in (x, dtt, A, Bm, Cm, x))
+        # the bound counts the function's least work, that of the
+        # recurrence h <- e^(dt·A)·h + dt·x·Bᵀ, y = C·h: one FMA per state
+        # element and step to update h and one to read it out, 4·N·P flops
+        # per step and head (the decay's multiply left out). The chunked
+        # form that the calibrator counts (ssd_scan_flops) does more.
+        flops = 4 * N * P * B * L * H
+        b_ms, b_by = bound(nbytes, flops, dt)
+        t = {"ms": cuda_ms(lambda: ssd_scan_blh(x, dtt, A, Bm, Cm), 10, 2),
+             "plain_ms": cuda_ms(lambda: ssd_scan_reference(
+                 x, dtt, A, Bm, Cm), 2, 1),
+             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+             "flops": flops, "bytes": nbytes,
+             "calibrator_flops": ssd_scan_flops(x.shape, Bm.shape, chunk)}
+        timed[("ssd", dt)] = t
+        emit("times", case="ssd_scan mamba2-1.3b", shape=list(x.shape),
+             d_state=N, chunk=chunk, dtype=dt, nvidia_smi=smi0,
+             library=None, **t)
+        del x, dtt, A, Bm, Cm
+    return timed
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -77,6 +394,8 @@ def main() -> None:
     import numpy as np
 
     from repro_torch.kernels import build
+    from repro_torch.kernels.sweeps import (SEGMENT_SUM_RTOL, WINDOW_SWEEP,
+                                            WINDOW_TOL)
     from repro_torch.kernels.window_agg import (window_aggregate,
                                                 window_aggregate_reference)
     from repro_torch.kernels.window_agg.kernel import (segment_reduce,
@@ -109,9 +428,6 @@ def main() -> None:
     # ---- kernel vs plain --------------------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
-    def bits(t):
-        return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
-
     def check_segment(x, stride, agg, name):
         """The kernel against the plain version on x; returns max |err|."""
         k = segment_reduce(x, agg=agg, stride=stride)
@@ -131,7 +447,7 @@ def main() -> None:
             tol = "bit-equal"
             rel = 0.0
         else:
-            rtol = RTOL_SUM[str(x.dtype).split(".")[1]]
+            rtol = SEGMENT_SUM_RTOL[str(x.dtype).split(".")[1]]
             scale = segment_reduce_plain(x.abs(), agg="sum",
                                          stride=stride).float()[~nan]
             require(bool((err <= rtol * scale).all()),
@@ -143,15 +459,38 @@ def main() -> None:
              tolerance=tol)
         return e
 
-    for T, C, w, s, agg, dt in SWEEP:
+    for T, C, w, s, agg, dt in WINDOW_SWEEP:
         x = (torch.randn(T, C, device=dev, generator=gen) * 10).to(dtypes[dt])
         for a in ("max", "min", "sum"):
             check_segment(x, s, a, f"sweep[{T},{C}]/{s} {dt} {a}")
         out = window_aggregate(x, agg=agg, window=w, stride=s)
         ref = window_aggregate_reference(x, agg=agg, window=w, stride=s)
-        tol = 1e-4 if dt == "float32" else 1e-1
+        tol = WINDOW_TOL[dt]
         require(torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol),
                 f"window_aggregate[{T},{C}] w{w}/s{s} {agg} {dt} vs reference")
+
+    # the calibrator's dry-run shape (scenario/calibrate.py _dry_window_agg
+    # at stride 64, m = 3): [768, 1] f32, window 192; its ones and seeded
+    # values, from a generator of their own so the draws below stay as
+    # they were
+    T, w, s = 4 * 3 * 64, 3 * 64, 64
+    g_cal = torch.Generator(device=dev).manual_seed(SEED + 1)
+    for name, x in (("ones", torch.ones(T, 1, device=dev)),
+                    ("randn", torch.randn(T, 1, device=dev,
+                                          generator=g_cal) * 10)):
+        for a in ("max", "min", "sum"):
+            check_segment(x, s, a,
+                          f"calibrator dry-run [{T},1]/{s} {name} {a}")
+        for a in ("max", "min", "sum", "mean"):
+            out = window_aggregate(x, agg=a, window=w, stride=s)
+            ref = window_aggregate_reference(x, agg=a, window=w, stride=s)
+            torch.cuda.synchronize()
+            what = (f"window_aggregate calibrator dry-run {name} {a}: "
+                    f"{out.flatten().tolist()} vs {ref.flatten().tolist()}")
+            require(out.shape == ref.shape == ((T - w) // s + 1, 1), what)
+            require(torch.equal(bits(out), bits(ref)) if a in ("max", "min")
+                    else torch.allclose(out, ref, rtol=WINDOW_TOL["float32"],
+                                        atol=WINDOW_TOL["float32"]), what)
 
     xn = torch.randn(1000, 4, device=dev, generator=gen)
     xn[5, 1] = float("nan")
@@ -179,6 +518,7 @@ def main() -> None:
             if name == "q2_fold":
                 fold_err = max(fold_err, e)
     del x
+    full_err = check_attention_and_ssd(dev, gen)
 
     # ---- main path ---------------------------------------------------------------
     segment_reduce.launches = 0
@@ -294,6 +634,10 @@ def main() -> None:
     emit("operators", cudnn_allow_tf32=False, kmeans_max_abs_err=km_err,
          linreg_max_abs_err=lr_err, cnn_max_abs_err=cnn_err)
 
+    # ---- the JITA-4DS path and the paper's §4 experiment -------------------------
+    cal_launches = calibration_path()
+    paper4()
+
     # ---- times ---------------------------------------------------------------------
     def cuda_ms(fn, reps=50, warm=3):
         for _ in range(warm):
@@ -349,19 +693,33 @@ def main() -> None:
          windows=[{k: r[k] for k in ("n", "agg", "seconds")}
                   for r in runs if "seconds" in r],
          max_memory_allocated=peak, nvidia_smi=smi0)
+    timed_full = time_attention_and_ssd(dev, gen, cuda_ms, smi0)
 
     # ---- result ----------------------------------------------------------------------
+    # window_agg at the Q2 fold, its launches on the pipeline's path; flash
+    # attention and the SSD scan at full width in bf16, their launches on
+    # the calibration path
     fold_t = timed[("q2_fold", "sum")]
+    flash_t, ssd_t = timed_full[("flash", "bfloat16")], timed_full[
+        ("ssd", "bfloat16")]
+    rows = [("window_agg.segment_reduce", "window_agg",
+             "src/repro/kernels/window_agg/kernel.py:45", launches, fold_err,
+             fold_t),
+            ("flash_attention.flash_attention_bshd", "flash_attention",
+             "src/repro/kernels/flash_attention/kernel.py:87",
+             cal_launches["flash_attention"],
+             full_err[("flash", "bfloat16")], flash_t),
+            ("ssd_scan.ssd_scan_blh", "ssd_scan",
+             "src/repro/kernels/ssd_scan/kernel.py:71",
+             cal_launches["ssd_scan"], full_err[("ssd", "bfloat16")], ssd_t)]
     print(json.dumps({"kernels": [{
-        "name": "window_agg.segment_reduce",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/window_agg.cu",
-        "replaces": "src/repro/kernels/window_agg/kernel.py:45",
-        "launches": launches,
-        "max_abs_err": fold_err,
-        "ms": fold_t["ms"], "plain_ms": fold_t["plain_ms"],
-        "bound_ms": fold_t["bound_ms"], "bound_by": fold_t["bound_by"],
-        "library_ms": fold_t["library_ms"]}]}), flush=True)
+        "name": name, "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{src}.cu",
+        "replaces": replaces, "launches": n, "max_abs_err": err,
+        "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"]}
+        for name, src, replaces, n, err, t in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

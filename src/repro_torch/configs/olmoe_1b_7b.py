@@ -1,0 +1,16 @@
+"""OLMoE-1B-7B — MoE 64 experts top-8. [arXiv:2409.02060; hf]"""
+from repro_torch.configs import ArchConfig, MoEConfig, register
+
+OLMOE_1B_7B = register(ArchConfig(
+    name="olmoe-1b-7b",
+    family="moe",
+    n_layers=16,
+    d_model=2048,
+    n_heads=16,
+    n_kv_heads=16,
+    d_head=128,
+    d_ff=1024,
+    vocab_size=50304,
+    moe=MoEConfig(n_experts=64, top_k=8, d_ff_expert=1024),
+    source="arXiv:2409.02060",
+))

@@ -4,6 +4,11 @@ The JAX package draws its initial k-means centers and its CNN weights
 from ``jax.random``, whose streams torch cannot reproduce. To hold the
 port against it on the same numbers, those arrays are handed over as
 numpy and converted here; nothing in this module imports JAX.
+
+The JITA-4DS core, the calibrator and the flash attention and SSD
+kernels carry no parameters: their inputs are numpy arrays and traces
+made from a seed, the same in both packages, so nothing here is needed
+for them.
 """
 from __future__ import annotations
 

@@ -1,0 +1,59 @@
+"""The public flash attention entry point, as the custom op
+``repro_torch::flash_attention``: on a CUDA tensor it runs the kernel
+(``kernel.flash_attention_bshd``), on a CPU tensor the plain version
+(``ref.attention_reference``). ``torch.utils.flop_counter.FlopCounterMode``
+counts the op by ``flash_attention_flops``, not by what either
+implementation runs inside."""
+from __future__ import annotations
+
+import torch
+from torch.utils.flop_counter import register_flop_formula
+
+from repro_torch.kernels.flash_attention.kernel import flash_attention_bshd
+from repro_torch.kernels.flash_attention.ref import attention_reference
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cpu")
+def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     causal: bool) -> torch.Tensor:
+    return attention_reference(q, k, v, causal=causal)
+
+
+@_flash_attention.register_kernel("cuda")
+def _(q, k, v, causal):
+    return flash_attention_bshd(q, k, v, causal=causal)
+
+
+def flash_attention_flops(q_shape, k_shape, causal: bool) -> int:
+    """The function's work: 4·d flops (q·k and p·v) for each (query, key)
+    pair the mask keeps, over B·H heads. With the right-aligned causal mask
+    query i keeps max(0, i + Skv - Sq + 1) keys. It does not depend on how
+    a kernel tiles the work."""
+    B, Sq, H, d = q_shape
+    Skv = k_shape[1]
+    if causal:
+        rows = min(Sq, Skv)            # the rows that see at least one key
+        pairs = rows * (rows + 1) // 2 + rows * max(0, Skv - Sq)
+    else:
+        pairs = Sq * Skv
+    return 4 * d * B * H * pairs
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flops(q_shape, k_shape, v_shape, causal, *args, **kwargs) -> int:
+    return flash_attention_flops(q_shape, k_shape, causal)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, block_q: int = 128,
+                    block_k: int = 128) -> torch.Tensor:
+    """q: [B, Sq, H, d]; k/v: [B, Skv, KV, d] (GQA) → [B, Sq, H, d] of q's
+    type. Runs where the tensors lie. ``block_q`` and ``block_k`` are
+    accepted only to keep the JAX package's signature: they are checked
+    for being positive and change nothing, since the CUDA kernel uses its
+    own tiles and the result does not depend on them."""
+    if block_q < 1 or block_k < 1:
+        raise ValueError(f"block sizes must be positive, got {block_q}, "
+                         f"{block_k}")
+    return torch.ops.repro_torch.flash_attention(q, k, v, causal)

@@ -1,0 +1,88 @@
+"""Mamba-2 SSD chunk scan on the card.
+
+``ssd_scan_blh(x, dt, A, B_, C)`` launches the CUDA C++ kernel of
+``kernels/csrc/ssd_scan.cu``, the port of the JAX package's Pallas
+``ssd_scan_bhl``. It reads the model layout (x [B, L, H, P], dt [B, L, H],
+A [H], B_/C [B, L, G, N]) where it lies and reads B_ and C by group, so
+nothing is transposed, repeated or padded first. The kernel runs its own
+64-step chunks. It takes CUDA tensors only and raises on what the kernel
+does not take; the plain version is ``ref.ssd_scan_reference``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build
+
+MAX_DIM = 128                   # P and N: csrc/ssd_scan.cu kMaxDim
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = build.load("ssd_scan")
+    fn = lib.ssd_scan_forward
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_int64] * 6 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
+    lib.ssd_scan_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(x, dt, A, B_, C) -> None:
+    if x.dim() != 4 or B_.dim() != 4 or B_.shape != C.shape:
+        raise ValueError(f"need x [B, L, H, P] and B_, C [B, L, G, N], got "
+                         f"{tuple(x.shape)}, {tuple(B_.shape)}, {tuple(C.shape)}")
+    Bb, L, H, P = x.shape
+    G, N = B_.shape[2], B_.shape[3]
+    if dt.shape != (Bb, L, H) or A.shape != (H,) or B_.shape[:2] != (Bb, L):
+        raise ValueError(f"dt {tuple(dt.shape)}, A {tuple(A.shape)} or B_ "
+                         f"{tuple(B_.shape)} disagree with x {tuple(x.shape)}")
+    if G < 1 or H % G:
+        raise ValueError(f"H = {H} must be a multiple of G = {G}")
+    if not (1 <= P <= MAX_DIM and 1 <= N <= MAX_DIM):
+        raise ValueError(f"need 1 <= P, N <= {MAX_DIM}, got P={P}, N={N}")
+    if x.dtype not in _DTYPE_CODE or B_.dtype != x.dtype or C.dtype != x.dtype:
+        raise ValueError(f"x, B_, C must all be float32 or all bfloat16, got "
+                         f"{x.dtype}, {B_.dtype}, {C.dtype}")
+    if not (dt.is_floating_point() and A.is_floating_point()):
+        raise ValueError("dt and A must be floating point")
+
+
+def ssd_scan_blh(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 B_: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+    """x [B,L,H,P]; dt [B,L,H]; A [H]; B_/C [B,L,G,N], CUDA tensors on one
+    device, x, B_, C contiguous and of one type (float32 or bfloat16),
+    P, N <= 128 → y [B,L,H,P] of x's type, without the D·x skip. dt and A
+    are widened to float32 here. Counted in ``ssd_scan_blh.launches``."""
+    _check(x, dt, A, B_, C)
+    tensors = (x, dt, A, B_, C)
+    if any(t.device.type != "cuda" or t.device != x.device for t in tensors):
+        raise ValueError("ssd_scan_blh's kernel takes CUDA tensors on one "
+                         f"device, got {[str(t.device) for t in tensors]}")
+    if not (x.is_contiguous() and B_.is_contiguous() and C.is_contiguous()):
+        raise ValueError("ssd_scan_blh's kernel needs contiguous x, B_, C")
+    Bb, L, H, P = x.shape
+    G, N = B_.shape[2], B_.shape[3]
+    dt32 = dt.float().contiguous()
+    A32 = A.float().contiguous()
+    out = torch.empty_like(x)
+    lib = _library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.ssd_scan_forward(
+            x.data_ptr(), dt32.data_ptr(), A32.data_ptr(), B_.data_ptr(),
+            C.data_ptr(), out.data_ptr(), _DTYPE_CODE[x.dtype], Bb, L, H, G,
+            P, N, stream)
+    if err:
+        raise RuntimeError("ssd_scan kernel launch failed: "
+                           f"{lib.ssd_scan_error_string(err).decode()}")
+    ssd_scan_blh.launches += 1
+    return out
+
+
+ssd_scan_blh.launches = 0

@@ -1,0 +1,62 @@
+"""The public SSD scan entry point, as the custom op
+``repro_torch::ssd_scan``: on a CUDA tensor it runs the kernel
+(``kernel.ssd_scan_blh``), on a CPU tensor the plain version
+(``ref.ssd_scan_reference``). ``torch.utils.flop_counter.FlopCounterMode``
+counts the op by ``ssd_scan_flops``, not by what either implementation
+runs inside."""
+from __future__ import annotations
+
+import torch
+from torch.utils.flop_counter import register_flop_formula
+
+from repro_torch.kernels.ssd_scan.kernel import ssd_scan_blh
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_reference
+
+
+@torch.library.custom_op("repro_torch::ssd_scan", mutates_args=(),
+                         device_types="cpu")
+def _ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+              B_: torch.Tensor, C: torch.Tensor, chunk: int) -> torch.Tensor:
+    return ssd_scan_reference(x, dt, A, B_, C)
+
+
+@_ssd_scan.register_kernel("cuda")
+def _(x, dt, A, B_, C, chunk):
+    return ssd_scan_blh(x, dt, A, B_, C)
+
+
+def ssd_scan_flops(x_shape, b_shape, chunk: int) -> int:
+    """The work of the chunked form at the caller's chunk Q, which the
+    calibrator counts: per chunk and head the four chunk products C·Bᵀ
+    (2·Q·Q·N), its product with X (2·Q·Q·P), the carry-in C·hᵀ and the
+    state update Xᵀ·B (2·Q·N·P each), over ceil(L / Q) chunks and B·H
+    heads. It does not depend on how a kernel tiles the work; it is more
+    than the recurrence needs, so it is not a roofline bound's count."""
+    Bb, L, H, P = x_shape
+    N = b_shape[3]
+    Q = chunk
+    per_chunk = 2 * Q * Q * N + 2 * Q * Q * P + 4 * Q * N * P
+    return Bb * H * (-(-L // Q)) * per_chunk
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan)
+def _flops(x_shape, dt_shape, a_shape, b_shape, c_shape, chunk, *args,
+           **kwargs) -> int:
+    return ssd_scan_flops(x_shape, b_shape, chunk)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B_: torch.Tensor, C: torch.Tensor, *,
+             chunk: int = 128) -> torch.Tensor:
+    """Model layout (matches the JAX package's models/ssm.ssd_chunked):
+    x [B, L, H, P]; dt [B, L, H] (post-softplus); A [H] (negative);
+    B_/C [B, L, G, N] (G groups broadcast over H). Returns y [B, L, H, P]
+    of x's type (without the D·x skip, which the caller adds). Runs where
+    the tensors lie. ``chunk`` does not change what is computed: the CUDA
+    kernel runs its own 64-step chunks and the plain version the
+    recurrence. It sets only the FLOPs that ``FlopCounterMode`` counts the
+    op for, which is the calibrator's measure; a roofline bound counts the
+    least work instead (4·N·P per step and head, see chip_smoke.py)."""
+    if chunk < 1:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    return torch.ops.repro_torch.ssd_scan(x, dt, A, B_, C, chunk)

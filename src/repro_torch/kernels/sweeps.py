@@ -1,0 +1,66 @@
+"""The shapes and tolerances at which the port's kernels are checked: the
+sweeps of the JAX package's kernel tests (tests/test_kernels_window.py,
+tests/test_kernels_flash.py, tests/test_kernels_ssd.py) with their
+tolerances, and the full width of the configurations the repo supports.
+chip_smoke.py and the tests read them from here, so the copies cannot
+drift apart."""
+from __future__ import annotations
+
+from repro_torch.configs import get_arch
+
+# window_agg: (T, C, window, stride, agg, dtype). window_aggregate within
+# WINDOW_TOL[dtype] (atol and rtol) of its reference; the segment pass's
+# sums within SEGMENT_SUM_RTOL[dtype] · Σ|x| of the segment, its max and
+# min bit-equal.
+WINDOW_SWEEP = ((600, 5, 180, 60, "max", "float32"),
+                (600, 5, 180, 60, "mean", "float32"),
+                (1024, 130, 256, 64, "sum", "float32"),
+                (777, 3, 120, 40, "min", "float32"),
+                (2000, 1, 500, 100, "mean", "float32"),
+                (512, 128, 128, 128, "max", "bfloat16"))
+WINDOW_TOL = {"float32": 1e-4, "bfloat16": 1e-1}
+SEGMENT_SUM_RTOL = {"float32": 1e-5, "bfloat16": 1e-1}
+
+# flash attention: (B, Sq, Skv, H, KV, d, causal, dtype), |err| <=
+# FLASH_TOL[dtype]. The last case is causal with Sq > Skv, so its first
+# rows see no key.
+FLASH_SWEEP = ((2, 256, 256, 4, 2, 64, True, "float32"),
+               (1, 200, 200, 4, 4, 64, True, "float32"),        # ragged
+               (2, 128, 384, 8, 2, 128, False, "float32"),      # cross-ish
+               (1, 256, 256, 2, 1, 32, True, "float32"),        # MQA
+               (1, 384, 384, 3, 3, 64, True, "float32"),        # odd heads
+               (2, 256, 256, 4, 2, 64, True, "bfloat16"),
+               (1, 128, 256, 8, 8, 128, True, "bfloat16"),
+               (1, 256, 128, 2, 1, 64, True, "float32"))
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+# SSD scan: (B, L, H, P, G, N, chunk, dtype), |err| <= SSD_RTOL[dtype] ·
+# max|plain|.
+SSD_SWEEP = ((2, 256, 4, 64, 1, 128, 128, "float32"),
+             (1, 512, 2, 32, 1, 64, 128, "float32"),
+             (2, 200, 4, 16, 2, 32, 64, "float32"),             # pad + groups
+             (1, 128, 8, 64, 1, 128, 32, "float32"),
+             (1, 256, 4, 64, 1, 128, 128, "bfloat16"))
+SSD_RTOL = {"float32": 1e-4, "bfloat16": 1e-1}
+
+# Full width, 4,096 positions (the train_4k shape). In bf16 the sweeps'
+# limits come close to the size of what they compare (a late row of
+# random causal attention has |o| near 0.03), so there flash is held per
+# query row, |err| <= FULL_FLASH_BF16_ROW_RTOL · max|plain| of the row
+# (one bf16 step is at most 2^-7 of it), and the SSD at FULL_SSD_RTOL. In
+# fp32 the sweeps' limits hold.
+FULL_SEQ = 4096
+FULL_FLASH_BF16_ROW_RTOL = 2e-2
+FULL_SSD_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
+
+
+def full_widths():
+    """(flash, SSD) shapes at full width: qwen3-1.7b attention as (B, Sq,
+    Skv, H, KV, d, causal) and mamba2-1.3b's SSD as (B, L, H, P, G, N,
+    chunk), both at FULL_SEQ positions."""
+    qwen, mamba = get_arch("qwen3-1.7b"), get_arch("mamba2-1.3b")
+    s = mamba.ssm
+    return ((1, FULL_SEQ, FULL_SEQ, qwen.n_heads, qwen.n_kv_heads,
+             qwen.head_dim, True),
+            (1, FULL_SEQ, s.n_heads(mamba.d_model), s.head_dim, s.n_groups,
+             s.d_state, s.chunk_size))

@@ -1,27 +1,23 @@
 """Sliding-window aggregation = segment reduce (the kernel) + a combine
 of window // stride consecutive segments (plain torch, as the JAX package
-leaves it to XLA outside Pallas)."""
+leaves it to XLA outside Pallas).
+
+``window_aggregate`` is the custom op ``repro_torch::window_aggregate``,
+so ``torch.utils.flop_counter.FlopCounterMode`` counts it by its FLOP
+formula, not by what it runs inside."""
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels.window_agg.kernel import segment_reduce
 
 
-def window_aggregate(x: torch.Tensor, *, agg: str, window: int,
-                     stride: int) -> torch.Tensor:
-    """x: [T, C] → [n_out, C] with out[o] = agg(x[o·stride : o·stride+window]).
-
-    window must be a multiple of stride (the paper's queries are:
-    180 s / 60 s, 120 d / 5 min). n_out = (T - window)//stride + 1.
-    agg ∈ {max, min, sum, mean}. Runs where ``x`` lies: a CUDA tensor
-    goes through the CUDA kernel, a CPU tensor through its plain version.
-    """
-    if window % stride:
-        raise ValueError("window must be a multiple of stride")
+@torch.library.custom_op("repro_torch::window_aggregate", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def _window_aggregate(x: torch.Tensor, agg: str, window: int,
+                      stride: int) -> torch.Tensor:
     T, C = x.shape
-    if T < window:
-        raise ValueError("series shorter than window")
     m = window // stride
     base = "sum" if agg == "mean" else agg
     seg = segment_reduce(x.contiguous(), agg=base,
@@ -39,3 +35,32 @@ def window_aggregate(x: torch.Tensor, *, agg: str, window: int,
     if agg == "mean":
         out = out / window
     return out
+
+
+@register_flop_formula(torch.ops.repro_torch.window_aggregate)
+def _flops(x_shape, agg, window, stride, *args, **kwargs) -> int:
+    """The function's work: one compare or add per row of the segment
+    pass (n_seg·stride·C, which is T·C when stride divides T), m − 1 per
+    output for the combine ((m − 1)·n_out·C), and one divide per output
+    for the mean (n_out·C)."""
+    T, C = x_shape
+    m = window // stride
+    n_out = (T - window) // stride + 1
+    flops = (T // stride) * stride * C + (m - 1) * n_out * C
+    return flops + (n_out * C if agg == "mean" else 0)
+
+
+def window_aggregate(x: torch.Tensor, *, agg: str, window: int,
+                     stride: int) -> torch.Tensor:
+    """x: [T, C] → [n_out, C] with out[o] = agg(x[o·stride : o·stride+window]).
+
+    window must be a multiple of stride (the paper's queries are:
+    180 s / 60 s, 120 d / 5 min). n_out = (T - window)//stride + 1.
+    agg ∈ {max, min, sum, mean}. Runs where ``x`` lies: a CUDA tensor
+    goes through the CUDA kernel, a CPU tensor through its plain version.
+    """
+    if window % stride:
+        raise ValueError("window must be a multiple of stride")
+    if x.shape[0] < window:
+        raise ValueError("series shorter than window")
+    return torch.ops.repro_torch.window_aggregate(x, agg, window, stride)

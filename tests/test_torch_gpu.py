@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on a card: each against its plain torch version.
+"""The port's CUDA kernels on a card: each against its plain torch version,
+and the calibrator on the card against the calibrator on the CPU.
 
 These tests need a CUDA card and skip elsewhere; the fixture decides, so
 every process collects the same tests. The file imports no JAX, so it
@@ -10,24 +11,25 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.flash_attention import (attention_reference,
+                                                 flash_attention)
+from repro_torch.kernels.flash_attention.kernel import flash_attention_bshd
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_reference
+from repro_torch.kernels.ssd_scan.kernel import ssd_scan_blh
+from repro_torch.kernels.sweeps import (FLASH_SWEEP, FLASH_TOL,
+                                        FULL_FLASH_BF16_ROW_RTOL,
+                                        FULL_SSD_RTOL, SEGMENT_SUM_RTOL,
+                                        SSD_RTOL, SSD_SWEEP, WINDOW_SWEEP,
+                                        WINDOW_TOL, full_widths)
 from repro_torch.kernels.window_agg import (window_aggregate,
                                             window_aggregate_reference)
 from repro_torch.kernels.window_agg.kernel import (segment_reduce,
                                                    segment_reduce_plain)
 from repro_torch.pipeline import HybridExecutor
+from repro_torch.scenario import KernelCalibrator
 
 torch.set_num_threads(2)
 
-# the sweep of tests/test_kernels_window.py
-SWEEP = [
-    (600, 5, 180, 60, "max", "float32"),
-    (600, 5, 180, 60, "mean", "float32"),
-    (1024, 130, 256, 64, "sum", "float32"),
-    (777, 3, 120, 40, "min", "float32"),
-    (2000, 1, 500, 100, "mean", "float32"),
-    (512, 128, 128, 128, "max", "bfloat16"),
-]
-RTOL_SUM = {"float32": 1e-5, "bfloat16": 1e-1}
 
 
 @pytest.fixture
@@ -38,7 +40,7 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("T,C,w,s,agg,dtype", SWEEP)
+@pytest.mark.parametrize("T,C,w,s,agg,dtype", WINDOW_SWEEP)
 def test_kernel_matches_plain(cuda, T, C, w, s, agg, dtype):
     """max/min equal to the plain version, sum within rtol · Σ|x| (the
     scale of fp32 rounding in a sum), reruns bit-identical."""
@@ -53,14 +55,32 @@ def test_kernel_matches_plain(cuda, T, C, w, s, agg, dtype):
         if a == "sum":
             scale = segment_reduce_plain(x.abs(), agg="sum", stride=s).float()
             err = (k.float() - p.float()).abs()
-            assert bool((err <= RTOL_SUM[dtype] * scale).all())
+            assert bool((err <= SEGMENT_SUM_RTOL[dtype] * scale).all())
         else:
             assert torch.equal(k, p)
         assert torch.equal(k, segment_reduce(x, agg=a, stride=s))
-    tol = 1e-4 if dtype == "float32" else 1e-1
+    tol = WINDOW_TOL[dtype]
     out = window_aggregate(x, agg=agg, window=w, stride=s)
     ref = window_aggregate_reference(x, agg=agg, window=w, stride=s)
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("agg", ["max", "min", "sum", "mean"])
+def test_window_at_the_calibrators_shape(cuda, agg):
+    """The calibrator's dry-run (scenario/calibrate.py at stride 64, m = 3):
+    [768, 1] f32, window 192, on its ones and on seeded values."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for x in (torch.ones(768, 1, device=cuda),
+              torch.randn(768, 1, device=cuda, generator=g) * 10):
+        out = window_aggregate(x, agg=agg, window=192, stride=64)
+        ref = window_aggregate_reference(x, agg=agg, window=192, stride=64)
+        assert out.shape == ref.shape == (10, 1)
+        if agg in ("max", "min"):
+            assert torch.equal(out, ref)
+        else:
+            tol = WINDOW_TOL["float32"]
+            torch.testing.assert_close(out, ref, atol=tol, rtol=tol)
 
 
 @pytest.mark.gpu
@@ -98,3 +118,129 @@ def test_executor_offloads_through_the_kernel(cuda, agg):
         assert got == float(vals.max())
     else:
         assert got == pytest.approx(vals.mean(dtype=np.float64), rel=1e-5)
+
+
+# ---- flash attention and the SSD scan --------------------------------------
+# the sweeps of tests/test_kernels_flash.py and tests/test_kernels_ssd.py,
+# each with the JAX package's tolerance, plus a causal case with Sq > Skv
+FLASH_CASES = [(*c, FLASH_TOL[c[-1]]) for c in FLASH_SWEEP]
+SSD_CASES = [(*c, SSD_RTOL[c[-1]]) for c in SSD_SWEEP]
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,d,causal,dtype,tol", FLASH_CASES)
+def test_flash_kernel_matches_plain(cuda, B, Sq, Skv, H, KV, d, causal, dtype,
+                                    tol):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(42)
+    dt = getattr(torch, dtype)
+    q = torch.randn(B, Sq, H, d, device=cuda, generator=g).to(dt)
+    k = torch.randn(B, Skv, KV, d, device=cuda, generator=g).to(dt)
+    v = torch.randn(B, Skv, KV, d, device=cuda, generator=g).to(dt)
+    before = flash_attention_bshd.launches
+    out = flash_attention(q, k, v, causal=causal)
+    assert flash_attention_bshd.launches == before + 1
+    torch.cuda.synchronize()
+    ref = attention_reference(q, k, v, causal=causal)
+    assert out.shape == ref.shape and out.dtype == dt
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
+    assert torch.equal(_bits(out), _bits(flash_attention(q, k, v,
+                                                         causal=causal)))
+    if causal and Sq > Skv:
+        assert not out[:, :Sq - Skv].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L,H,P,G,N,chunk,dtype,rtol", SSD_CASES)
+def test_ssd_kernel_matches_plain(cuda, B, L, H, P, G, N, chunk, dtype, rtol):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    dt = getattr(torch, dtype)
+    x = torch.randn(B, L, H, P, device=cuda, generator=g).to(dt)
+    dtt = torch.nn.functional.softplus(torch.randn(B, L, H, device=cuda,
+                                                   generator=g))
+    A = -torch.exp(torch.randn(H, device=cuda, generator=g) * 0.5)
+    Bm = (torch.randn(B, L, G, N, device=cuda, generator=g) * 0.3).to(dt)
+    Cm = (torch.randn(B, L, G, N, device=cuda, generator=g) * 0.3).to(dt)
+    before = ssd_scan_blh.launches
+    y = ssd_scan(x, dtt, A, Bm, Cm, chunk=chunk)
+    assert ssd_scan_blh.launches == before + 1
+    torch.cuda.synchronize()
+    ref = ssd_scan_reference(x, dtt, A, Bm, Cm)
+    assert y.shape == ref.shape and y.dtype == dt
+    scale = float(ref.float().abs().max())
+    assert float((y.float() - ref.float()).abs().max()) <= rtol * scale
+    assert torch.equal(_bits(y), _bits(ssd_scan(x, dtt, A, Bm, Cm,
+                                                chunk=chunk)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_full_width_kernels_match_plain(cuda, dtype):
+    """qwen3-1.7b attention and mamba2-1.3b's SSD at 4,096 positions:
+    flash per query row in bf16 (|err| <= rtol · max|plain| of the row),
+    else within the sweep's limit; the SSD within FULL_SSD_RTOL ·
+    max|plain|."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    (B, Sq, Skv, H, KV, d, causal), (_, L, Hs, P, G, N, chunk) = full_widths()
+    g = torch.Generator(device=cuda).manual_seed(0)
+    dt = getattr(torch, dtype)
+    q = torch.randn(B, Sq, H, d, device=cuda, generator=g).to(dt)
+    k = torch.randn(B, Skv, KV, d, device=cuda, generator=g).to(dt)
+    v = torch.randn(B, Skv, KV, d, device=cuda, generator=g).to(dt)
+    out = flash_attention(q, k, v, causal=causal).float()
+    ref = attention_reference(q, k, v, causal=causal).float()
+    diff = (out - ref).abs()
+    if dtype == "bfloat16":
+        row_tol = FULL_FLASH_BF16_ROW_RTOL * ref.abs().amax(-1)
+        assert bool((diff.amax(-1) <= row_tol).all())
+    else:
+        assert float(diff.max()) <= FLASH_TOL[dtype]
+    del q, k, v, out, ref, diff
+    x = torch.randn(B, L, Hs, P, device=cuda, generator=g).to(dt)
+    dtt = torch.nn.functional.softplus(torch.randn(B, L, Hs, device=cuda,
+                                                   generator=g))
+    A = -torch.exp(torch.randn(Hs, device=cuda, generator=g) * 0.5)
+    Bm = (torch.randn(B, L, G, N, device=cuda, generator=g) * 0.3).to(dt)
+    Cm = (torch.randn(B, L, G, N, device=cuda, generator=g) * 0.3).to(dt)
+    y = ssd_scan(x, dtt, A, Bm, Cm, chunk=chunk).float()
+    ref = ssd_scan_reference(x, dtt, A, Bm, Cm).float()
+    scale = float(ref.abs().max())
+    assert float((y - ref).abs().max()) <= FULL_SSD_RTOL[dtype] * scale
+
+
+@pytest.mark.gpu
+def test_new_kernels_reject_what_they_do_not_take(cuda):
+    q = torch.randn(1, 64, 2, 64, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_bshd(q[:, ::2], q[:, ::2], q[:, ::2])
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        flash_attention_bshd(q.double(), q.double(), q.double())
+    with pytest.raises(ValueError, match="CUDA tensors on one device"):
+        flash_attention_bshd(q, q.cpu(), q)
+    x = torch.randn(1, 32, 2, 8, device=cuda)
+    dt, A = torch.rand(1, 32, 2, device=cuda), -torch.ones(2, device=cuda)
+    Bm = torch.randn(1, 32, 1, 8, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan_blh(x.transpose(1, 2).contiguous().transpose(1, 2), dt, A,
+                     Bm, Bm)
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        ssd_scan_blh(x.bfloat16(), dt, A, Bm, Bm)
+
+
+@pytest.mark.gpu
+def test_calibration_on_the_card_equals_the_cpu(cuda):
+    """The calibrator on the card launches every kernel of its operators
+    and counts the same FLOPs as on the CPU."""
+    gpu, cpu = KernelCalibrator(), KernelCalibrator(device="cpu")
+    assert gpu.device == cuda
+    counters = (segment_reduce, flash_attention_bshd, ssd_scan_blh)
+    before = [c.launches for c in counters]
+    for op, agg, m in (("window_agg", "max", 3), ("ssd_scan", "max", 2),
+                       ("flash_attention", "max", 2)):
+        a, b = gpu.measure(op, agg=agg, m=m), cpu.measure(op, agg=agg, m=m)
+        assert a == b and a.source == "flop-counter"
+    assert [c.launches - n for c, n in zip(counters, before)] == [1, 1, 1]

@@ -9,6 +9,7 @@ import torch
 
 from repro.kernels.window_agg import window_aggregate as jax_window_aggregate
 from repro_torch.kernels import build
+from repro_torch.kernels.sweeps import WINDOW_SWEEP, WINDOW_TOL
 from repro_torch.kernels.window_agg import (window_aggregate,
                                             window_aggregate_reference)
 from repro_torch.kernels.window_agg.kernel import (segment_reduce,
@@ -18,15 +19,7 @@ from repro_torch.kernels.window_agg.kernel import (segment_reduce,
 torch.set_num_threads(2)
 
 # the sweep of tests/test_kernels_window.py
-SWEEP = [
-    (600, 5, 180, 60, "max", "float32"),
-    (600, 5, 180, 60, "mean", "float32"),
-    (1024, 130, 256, 64, "sum", "float32"),
-    (777, 3, 120, 40, "min", "float32"),
-    (2000, 1, 500, 100, "mean", "float32"),
-    (512, 128, 128, 128, "max", "bfloat16"),
-]
-TOL = {"float32": 1e-4, "bfloat16": 1e-1}
+SWEEP, TOL = WINDOW_SWEEP, WINDOW_TOL
 AGGS = ("max", "min", "sum", "mean")
 
 
