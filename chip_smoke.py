@@ -14,7 +14,9 @@ JSON line; any failure exits non-zero:
           test sweeps' shapes, the main paths' shapes (the calibrator's
           dry-runs among them) and full width
           (qwen3-1.7b attention and mamba2-1.3b SSD at 4,096 positions),
-          plus a NaN case and a bitwise rerun check
+          plus a NaN case and a bitwise rerun check; flash attention and
+          the SSD each have two kernels, wgmma for bf16 and CUDA-core FMA
+          for fp32, and each call must launch the one of its type
   main    the paper's §3 use case through the port's entry points: a Neubot
           farm of 8 things at 1 Hz → broker → Q1 and Q2 stream services
           (fetch → bounded buffer → spill to the store) for one simulated
@@ -25,7 +27,8 @@ JSON line; any failure exits non-zero:
           against the same operators on the CPU
   calibrate  the JITA-4DS path: ``KernelCalibrator()`` measures the flops
           per record of three services (window_agg, ssd_scan,
-          flash_attention) from dry-runs of their kernels on the card,
+          flash_attention) from dry-runs of their kernels on the card, in
+          float32 and bfloat16,
           ``calibrate_profiles`` and ``analytics_cost_model`` price them,
           and a seeded trace of their DC fires runs through
           ``Simulator(HintedVPTR(), cost)``; the launch counters show that
@@ -35,8 +38,11 @@ JSON line; any failure exits non-zero:
           VoS must equal the JAX package's, recorded below
   times   kernel, plain version and one library call by CUDA events at the
           main path's shape, the fleet shape and full width, beside the
-          bound; the host-to-device copy and ``run_window`` end to end; peak
-          memory
+          bound (at full width the kernel and the library call as the
+          median of 5 batches of 20 launches after 5 warm-ups, with the
+          batches' spread, and each kernel's device time from
+          torch.profiler, the SSD's three passes apart); the host-to-device
+          copy and ``run_window`` end to end; peak memory
 
 Then one line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
 {...}}``. With no CUDA card it exits non-zero before printing any result.
@@ -45,9 +51,11 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import itertools
 import json
 import math
 import random
+import re
 import subprocess
 import sys
 import time
@@ -124,7 +132,10 @@ def check_attention_and_ssd(dev, gen) -> dict:
     import torch
     from repro_torch.kernels.flash_attention import (attention_reference,
                                                      flash_attention)
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_fma, flash_attention_wgmma)
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_reference
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_fma, ssd_scan_wgmma
     from repro_torch.kernels.sweeps import (FLASH_SWEEP, FLASH_TOL,
                                             FULL_FLASH_BF16_ROW_RTOL,
                                             FULL_SSD_RTOL, SSD_RTOL,
@@ -167,18 +178,25 @@ def check_attention_and_ssd(dev, gen) -> dict:
         name = f"flash[{B},{Sq},{Skv},{H},{KV},{d}] causal={causal} {dt}"
         at_full = (B, Sq, Skv, H, KV, d, causal) == flash_full
         row = at_full and dt == "bfloat16"
-        err = check(name, flash_attention(q, k, v, causal=causal),
-                    flash_attention(q, k, v, causal=causal),
+        before = (flash_attention_wgmma.launches, flash_attention_fma.launches)
+        out = flash_attention(q, k, v, causal=causal)
+        went = (flash_attention_wgmma.launches - before[0],
+                flash_attention_fma.launches - before[1])
+        require(went == ((1, 0) if dt == "bfloat16" else (0, 1)),
+                f"{name}: (wgmma, fma) launches {went}")
+        err = check(name, out, flash_attention(q, k, v, causal=causal),
                     attention_reference(q, k, v, causal=causal),
                     FULL_FLASH_BF16_ROW_RTOL if row else FLASH_TOL[dt],
                     per_row=row)
         if at_full:
             full[("flash", dt)] = err
         del q, k, v
-    ones = torch.ones(1, 256, 2, 64, device=dev)         # the dry-run's
-    check("flash calibrator dry-run [1,256,2,64] ones",
-          flash_attention(ones, ones, ones), flash_attention(ones, ones, ones),
-          attention_reference(ones, ones, ones), FLASH_TOL["float32"])
+    for dt in ("float32", "bfloat16"):                   # the dry-run's
+        ones = torch.ones(1, 256, 2, 64, device=dev, dtype=getattr(torch, dt))
+        check(f"flash calibrator dry-run [1,256,2,64] ones {dt}",
+              flash_attention(ones, ones, ones),
+              flash_attention(ones, ones, ones),
+              attention_reference(ones, ones, ones), FLASH_TOL[dt])
 
     cases = list(SSD_SWEEP) + [(*ssd_full, dt)
                                for dt in ("bfloat16", "float32")]
@@ -186,21 +204,29 @@ def check_attention_and_ssd(dev, gen) -> dict:
         args = ssd_inputs(dev, gen, B, L, H, P, G, N, dt)
         ref = ssd_scan_reference(*args)
         at_full = (B, L, H, P, G, N, chunk) == ssd_full
-        err = check(f"ssd[{B},{L},{H},{P},{G},{N}] chunk={chunk} {dt}",
-                    ssd_scan(*args, chunk=chunk), ssd_scan(*args, chunk=chunk),
-                    ref, (FULL_SSD_RTOL if at_full else SSD_RTOL)[dt],
+        name = f"ssd[{B},{L},{H},{P},{G},{N}] chunk={chunk} {dt}"
+        before = (ssd_scan_wgmma.launches, ssd_scan_fma.launches)
+        out = ssd_scan(*args, chunk=chunk)
+        went = (ssd_scan_wgmma.launches - before[0],
+                ssd_scan_fma.launches - before[1])
+        require(went == ((1, 0) if dt == "bfloat16" else (0, 1)),
+                f"{name}: (wgmma, fma) launches {went}")
+        err = check(name, out, ssd_scan(*args, chunk=chunk), ref,
+                    (FULL_SSD_RTOL if at_full else SSD_RTOL)[dt],
                     float(ref.float().abs().max()))
         if at_full:
             full[("ssd", dt)] = err
         del args, ref
-    x, dtt = torch.ones(1, 128, 2, 64, device=dev), torch.ones(
-        1, 128, 2, device=dev) * 0.1
-    A, Bm = -torch.ones(2, device=dev), torch.ones(1, 128, 1, 16, device=dev)
-    ref = ssd_scan_reference(x, dtt, A, Bm, Bm)
-    check("ssd calibrator dry-run [1,128,2,64] N=16 ones",
-          ssd_scan(x, dtt, A, Bm, Bm, chunk=64),
-          ssd_scan(x, dtt, A, Bm, Bm, chunk=64), ref, SSD_RTOL["float32"],
-          float(ref.abs().max()))
+    for dt in ("float32", "bfloat16"):                   # the dry-run's
+        x = torch.ones(1, 128, 2, 64, device=dev, dtype=getattr(torch, dt))
+        Bm = torch.ones(1, 128, 1, 16, device=dev, dtype=x.dtype)
+        dtt = torch.ones(1, 128, 2, device=dev) * 0.1
+        A = -torch.ones(2, device=dev)
+        ref = ssd_scan_reference(x, dtt, A, Bm, Bm)
+        check(f"ssd calibrator dry-run [1,128,2,64] N=16 ones {dt}",
+              ssd_scan(x, dtt, A, Bm, Bm, chunk=64),
+              ssd_scan(x, dtt, A, Bm, Bm, chunk=64), ref, SSD_RTOL[dt],
+              float(ref.float().abs().max()))
     return full
 
 
@@ -251,14 +277,19 @@ def calibration_path() -> dict:
     analytics_cost_model → Simulator(HintedVPTR(), cost). Returns the
     launches of each kernel in this run."""
     from repro_torch.core.simulator import Simulator
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_bshd
-    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_blh
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bshd, flash_attention_fma, flash_attention_wgmma)
+    from repro_torch.kernels.ssd_scan.kernel import (ssd_scan_blh, ssd_scan_fma,
+                                                     ssd_scan_wgmma)
     from repro_torch.kernels.window_agg.kernel import segment_reduce
     from repro_torch.scenario import (HintedVPTR, KernelCalibrator,
                                       analytics_cost_model, calibrate_profiles)
 
     counters = {"window_agg": segment_reduce, "flash_attention":
-                flash_attention_bshd, "ssd_scan": ssd_scan_blh}
+                flash_attention_bshd, "flash_attention_wgmma":
+                flash_attention_wgmma, "flash_attention_fma":
+                flash_attention_fma, "ssd_scan": ssd_scan_blh,
+                "ssd_scan_wgmma": ssd_scan_wgmma, "ssd_scan_fma": ssd_scan_fma}
     for c in counters.values():
         c.launches = 0
     t0 = time.perf_counter()
@@ -318,9 +349,36 @@ def paper4() -> None:
     emit("paper4", heuristics=rows, power_cap_w=cap)
 
 
+def kernel_device_ms(fn, n=10) -> dict:
+    """Device time per call of each kernel that fn launches, by name, from
+    torch.profiler over n calls after one warm-up. Only entries seen a
+    multiple of n times count: the profiler's own buffer set-up shows as a
+    device entry seen once."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = e.self_cuda_time_total
+        if t > 0 and e.count % n == 0:
+            name = re.sub(r"^void |\(anonymous namespace\)::", "", e.key)
+            out[name.split("(")[0]] = t / n / 1e3
+    require(bool(out), "torch.profiler saw no device time")
+    return out
+
+
 def time_attention_and_ssd(dev, gen, cuda_ms, smi0) -> dict:
     """Kernel, plain version and library call at full width by CUDA
-    events, beside the bound; returns the timings by (kernel, dtype)."""
+    events, beside the bound; the kernel and the library call as the
+    median of 5 batches of 20 launches after 5 warm-ups, with the spread
+    (max - min) of the batches. Returns the timings by (kernel, dtype)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import attention_reference
@@ -336,6 +394,13 @@ def time_attention_and_ssd(dev, gen, cuda_ms, smi0) -> dict:
         t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
         return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
+    def batches(fn, key):
+        """{key: median ms, key_batches: the 5 batch means, key_spread:
+        max - min of them}"""
+        ms = sorted(cuda_ms(fn, 20, 5 if i == 0 else 0) for i in range(5))
+        return {key: ms[2], f"{key}_batches": ms, f"{key}_spread":
+                ms[-1] - ms[0]}
+
     flash_full, ssd_full = full_widths()
     timed = {}
     for dt in ("bfloat16", "float32"):
@@ -345,15 +410,18 @@ def time_attention_and_ssd(dev, gen, cuda_ms, smi0) -> dict:
         flops = flash_attention_flops(q.shape, k.shape, causal)
         b_ms, b_by = bound(nbytes, flops, dt)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        t = {"ms": cuda_ms(lambda: flash_attention_bshd(q, k, v,
-                                                       causal=causal), 10, 2),
+        t = {**batches(lambda: flash_attention_bshd(q, k, v, causal=causal),
+                       "ms"),
              "plain_ms": cuda_ms(lambda: attention_reference(
                  q, k, v, causal=causal), 5, 1),
              # SDPA's is_causal is top-left aligned: the same mask at Sq = Skv
-             "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                 qt, kt, vt, is_causal=True, enable_gqa=True), 10, 2),
+             **batches(lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, is_causal=True, enable_gqa=True), "library_ms"),
              "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
-             "bytes": nbytes}
+             "bytes": nbytes,
+             "kernel": "wgmma" if dt == "bfloat16" else "fma",
+             "device_ms_by_kernel": kernel_device_ms(
+                 lambda: flash_attention_bshd(q, k, v, causal=causal))}
         timed[("flash", dt)] = t
         emit("times", case="flash_attention qwen3-1.7b", shape=[list(q.shape),
              list(k.shape)], dtype=dt, causal=causal, nvidia_smi=smi0,
@@ -372,12 +440,14 @@ def time_attention_and_ssd(dev, gen, cuda_ms, smi0) -> dict:
         # form that the calibrator counts (ssd_scan_flops) does more.
         flops = 4 * N * P * B * L * H
         b_ms, b_by = bound(nbytes, flops, dt)
-        t = {"ms": cuda_ms(lambda: ssd_scan_blh(x, dtt, A, Bm, Cm), 10, 2),
+        t = {**batches(lambda: ssd_scan_blh(x, dtt, A, Bm, Cm), "ms"),
              "plain_ms": cuda_ms(lambda: ssd_scan_reference(
                  x, dtt, A, Bm, Cm), 2, 1),
              "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
              "flops": flops, "bytes": nbytes,
-             "calibrator_flops": ssd_scan_flops(x.shape, Bm.shape, chunk)}
+             "calibrator_flops": ssd_scan_flops(x.shape, Bm.shape, chunk),
+             "device_ms_by_kernel": kernel_device_ms(
+                 lambda: ssd_scan_blh(x, dtt, A, Bm, Cm))}
         timed[("ssd", dt)] = t
         emit("times", case="ssd_scan mamba2-1.3b", shape=list(x.shape),
              d_state=N, chunk=chunk, dtype=dt, nvidia_smi=smi0,
@@ -470,27 +540,38 @@ def main() -> None:
                 f"window_aggregate[{T},{C}] w{w}/s{s} {agg} {dt} vs reference")
 
     # the calibrator's dry-run shape (scenario/calibrate.py _dry_window_agg
-    # at stride 64, m = 3): [768, 1] f32, window 192; its ones and seeded
-    # values, from a generator of their own so the draws below stay as
-    # they were
+    # at stride 64, m = 3): [768, 1] in f32 and bf16, window 192; its ones
+    # and seeded values, from a generator of their own so the draws below
+    # stay as they were
     T, w, s = 4 * 3 * 64, 3 * 64, 64
     g_cal = torch.Generator(device=dev).manual_seed(SEED + 1)
-    for name, x in (("ones", torch.ones(T, 1, device=dev)),
-                    ("randn", torch.randn(T, 1, device=dev,
-                                          generator=g_cal) * 10)):
+    seeded = torch.randn(T, 1, device=dev, generator=g_cal) * 10
+    for (name, x), dt in itertools.product(
+            (("ones", torch.ones(T, 1, device=dev)), ("randn", seeded)),
+            dtypes):
+        x = x.to(dtypes[dt])
         for a in ("max", "min", "sum"):
             check_segment(x, s, a,
-                          f"calibrator dry-run [{T},1]/{s} {name} {a}")
+                          f"calibrator dry-run [{T},1]/{s} {name} {dt} {a}")
         for a in ("max", "min", "sum", "mean"):
             out = window_aggregate(x, agg=a, window=w, stride=s)
             ref = window_aggregate_reference(x, agg=a, window=w, stride=s)
             torch.cuda.synchronize()
-            what = (f"window_aggregate calibrator dry-run {name} {a}: "
+            what = (f"window_aggregate calibrator dry-run {name} {dt} {a}: "
                     f"{out.flatten().tolist()} vs {ref.flatten().tolist()}")
-            require(out.shape == ref.shape == ((T - w) // s + 1, 1), what)
-            require(torch.equal(bits(out), bits(ref)) if a in ("max", "min")
-                    else torch.allclose(out, ref, rtol=WINDOW_TOL["float32"],
-                                        atol=WINDOW_TOL["float32"]), what)
+            require(out.shape == ref.shape == ((T - w) // s + 1, 1)
+                    and out.dtype == ref.dtype, what)
+            if a in ("max", "min"):
+                ok = torch.equal(bits(out), bits(ref))
+            elif dt == "float32" or name == "ones":
+                ok = torch.allclose(out.float(), ref.float(),
+                                    rtol=WINDOW_TOL[dt], atol=WINDOW_TOL[dt])
+            else:   # bf16 rounds each segment's sum before the combine
+                scale = window_aggregate_reference(
+                    x.abs(), agg=a, window=w, stride=s).float()
+                ok = bool(((out.float() - ref.float()).abs()
+                           <= SEGMENT_SUM_RTOL[dt] * scale).all())
+            require(ok, what)
 
     xn = torch.randn(1000, 4, device=dev, generator=gen)
     xn[5, 1] = float("nan")
@@ -697,21 +778,28 @@ def main() -> None:
 
     # ---- result ----------------------------------------------------------------------
     # window_agg at the Q2 fold, its launches on the pipeline's path; flash
-    # attention and the SSD scan at full width in bf16, their launches on
-    # the calibration path
+    # attention's and the SSD scan's two kernels each at full width in their
+    # types (bf16: wgmma, fp32: FMA), their launches on the calibration path
     fold_t = timed[("q2_fold", "sum")]
-    flash_t, ssd_t = timed_full[("flash", "bfloat16")], timed_full[
-        ("ssd", "bfloat16")]
+    flash = "src/repro/kernels/flash_attention/kernel.py:87"
+    ssd = "src/repro/kernels/ssd_scan/kernel.py:71"
     rows = [("window_agg.segment_reduce", "window_agg",
              "src/repro/kernels/window_agg/kernel.py:45", launches, fold_err,
              fold_t),
-            ("flash_attention.flash_attention_bshd", "flash_attention",
-             "src/repro/kernels/flash_attention/kernel.py:87",
-             cal_launches["flash_attention"],
-             full_err[("flash", "bfloat16")], flash_t),
-            ("ssd_scan.ssd_scan_blh", "ssd_scan",
-             "src/repro/kernels/ssd_scan/kernel.py:71",
-             cal_launches["ssd_scan"], full_err[("ssd", "bfloat16")], ssd_t)]
+            ("flash_attention.flash_attention_wgmma", "flash_attention_sm90",
+             flash, cal_launches["flash_attention_wgmma"],
+             full_err[("flash", "bfloat16")],
+             timed_full[("flash", "bfloat16")]),
+            ("flash_attention.flash_attention_fma", "flash_attention",
+             flash, cal_launches["flash_attention_fma"],
+             full_err[("flash", "float32")],
+             timed_full[("flash", "float32")]),
+            ("ssd_scan.ssd_scan_wgmma", "ssd_scan", ssd,
+             cal_launches["ssd_scan_wgmma"], full_err[("ssd", "bfloat16")],
+             timed_full[("ssd", "bfloat16")]),
+            ("ssd_scan.ssd_scan_fma", "ssd_scan", ssd,
+             cal_launches["ssd_scan_fma"], full_err[("ssd", "float32")],
+             timed_full[("ssd", "float32")])]
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{src}.cu",

@@ -3,8 +3,9 @@
 Each source ``csrc/<name>.cu`` has a plain C interface and compiles with
 ``nvcc`` alone (no PyTorch headers, so a build takes seconds) into
 ``build/kernels/lib<name>-<digest>.so`` at the root of the checkout,
-which ``.gitignore`` lists. The digest covers the source and the flags,
-so an edited source is rebuilt and a stale library is never loaded.
+which ``.gitignore`` lists. The digest covers the source, the shared
+headers ``csrc/*.cuh`` and the flags, so an edited source or header is
+rebuilt and a stale library is never loaded.
 Nothing is built when a module is imported: the first call that needs a
 kernel builds it. A missing ``nvcc`` or a failed build raises.
 """
@@ -22,7 +23,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("window_agg", "flash_attention", "ssd_scan")
+SOURCES = ("window_agg", "flash_attention", "flash_attention_sm90", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -42,7 +43,9 @@ def find_nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 

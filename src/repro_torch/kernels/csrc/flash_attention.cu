@@ -1,8 +1,10 @@
 // Causal flash attention (online softmax, FlashAttention-2) for Hopper
-// (sm_90a).
+// (sm_90a), float32 on the CUDA cores.
 //
 // Replaces the TPU Pallas kernel flash_attention_bhsd / _flash_kernel of
-// the JAX package (repro/kernels/flash_attention/kernel.py). It computes
+// the JAX package (repro/kernels/flash_attention/kernel.py) for float32
+// inputs; bf16 runs on the tensor cores in flash_attention_sm90.cu. It
+// computes
 //   o[b, i, h, :] = sum_j softmax_j(q[b, i, h, :] . k[b, j, kv, :] / sqrt(d))
 //                   v[b, j, kv, :]
 // in the model layout q [B, Sq, H, d], k/v [B, Skv, KV, d], o like q, with
@@ -10,14 +12,13 @@
 //  * a right-aligned causal mask: query i sees key j <= i + Skv - Sq;
 //  * key rows j >= Skv masked here, so the caller pads nothing;
 //  * a row that sees no key giving 0, as the TPU kernel's safe_l does.
-// Inputs are f32 or bf16 (widened on load); the running (m, l, acc) state
-// is fp32; the output is rounded to q's type once.
+// Inputs, the running (m, l, acc) state and the output are fp32.
 //
 // What bounds it: operations. Each kept (query, key) pair costs 4 d flops
 // (two d-long dot products) against 2 d input values read once, so at the
-// shapes of a model the work is far past the card's ridge point. This
-// first version runs the products as fp32 FMA on the CUDA cores (67
-// TFLOP/s peak), not on the tensor cores (wgmma), which is a later step.
+// shapes of a model the work is far past the card's ridge point. It runs
+// the products as fp32 FMA on the CUDA cores (67 TFLOP/s peak): the JAX
+// package's fp32 tolerance of 2e-5 rules out TF32 on the tensor cores.
 //
 // What the design does about it:
 //  * One block of 128 threads per (b * H + h, tile of kBQ = 64 queries).
@@ -37,7 +38,6 @@
 // Plain C interface, loaded with ctypes. The launch goes to the caller's
 // stream; nothing here allocates or synchronises. The entry point returns
 // the cudaError_t of its launch (0 on success).
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -49,34 +49,15 @@ constexpr int kThreads = 128;  // 16 row groups x 8 column groups
 constexpr int kPad = 4;        // floats of row padding (keeps 16 B alignment)
 constexpr float kNegInf = -1e30f;  // the TPU kernel's NEG_INF
 
-enum DType { kF32 = 0, kBF16 = 1 };
-
 __device__ __forceinline__ int64_t imin(int64_t a, int64_t b) {
   return a < b ? a : b;
 }
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
-  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
-  const float2 fa = __bfloat1622float2(a);
-  const float2 fb = __bfloat1622float2(b);
-  return make_float4(fa.x, fa.y, fb.x, fb.y);
-}
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
 // rows [0, n_rows) of a tile of `rows` rows x D values, from a tensor whose
-// row r starts at base + r * row_stride, widened into smem [rows][D + kPad];
+// row r starts at base + r * row_stride, into smem [rows][D + kPad];
 // rows past n_rows are zero
-template <typename T, int D>
-__device__ __forceinline__ void stage(float* smem, const T* base,
+template <int D>
+__device__ __forceinline__ void stage(float* smem, const float* base,
                                       int64_t row_stride, int rows,
                                       int n_rows) {
   constexpr int kVecs = D / 4;
@@ -84,16 +65,17 @@ __device__ __forceinline__ void stage(float* smem, const T* base,
     const int r = e / kVecs;
     const int c = (e % kVecs) * 4;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < n_rows) v = load4(base + r * row_stride + c);
+    if (r < n_rows)
+      v = *reinterpret_cast<const float4*>(base + r * row_stride + c);
     *reinterpret_cast<float4*>(smem + r * (D + kPad) + c) = v;
   }
 }
 
 // grid (ceil(Sq / kBQ), B * H), block kThreads
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_forward(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o, int64_t H,
+flash_forward(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o, int64_t H,
               int64_t KV, int64_t Sq, int64_t Skv, int causal, float scale) {
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);  // [kBQ][D + kPad]
@@ -110,11 +92,11 @@ flash_forward(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t q_offset = Skv - Sq;
 
   const int64_t q_stride = H * D, kv_stride = KV * D;
-  const T* qb = q + (b * Sq + q0) * q_stride + h * D;
-  const T* kb = k + b * Skv * kv_stride + kvh * D;
-  const T* vb = v + b * Skv * kv_stride + kvh * D;
+  const float* qb = q + (b * Sq + q0) * q_stride + h * D;
+  const float* kb = k + b * Skv * kv_stride + kvh * D;
+  const float* vb = v + b * Skv * kv_stride + kvh * D;
   const int q_rows = (int)imin(kBQ, Sq - q0);
-  stage<T, D>(Qs, qb, q_stride, kBQ, q_rows);
+  stage<D>(Qs, qb, q_stride, kBQ, q_rows);
 
   constexpr int kDC = D / 32;  // float4 groups of accumulator columns
   float acc[4][kDC][4];
@@ -135,7 +117,7 @@ flash_forward(const T* __restrict__ q, const T* __restrict__ k,
   for (int64_t k0 = 0; k0 < k_end; k0 += kBK) {
     const int k_rows = (int)imin(kBK, Skv - k0);
     __syncthreads();  // the previous tile's P . V is done with KVs and Ps
-    stage<T, D>(KVs, kb + k0 * kv_stride, kv_stride, kBK, k_rows);
+    stage<D>(KVs, kb + k0 * kv_stride, kv_stride, kBK, k_rows);
     __syncthreads();
 
     // s = q . k^T for rows ty*4+i, columns tx + 8j
@@ -203,7 +185,7 @@ flash_forward(const T* __restrict__ q, const T* __restrict__ k,
         for (int e = 0; e < 4; ++e) acc[i][c][e] *= alpha;
     }
     __syncthreads();  // every thread is done reading K from KVs
-    stage<T, D>(KVs, vb + k0 * kv_stride, kv_stride, kBK, k_rows);
+    stage<D>(KVs, vb + k0 * kv_stride, kv_stride, kBK, k_rows);
     __syncthreads();
 
     // acc += P . V for rows ty*4+i, columns tx*4 + 32c + e
@@ -240,12 +222,12 @@ flash_forward(const T* __restrict__ q, const T* __restrict__ k,
     const int r = ty * 4 + i;
     if (r >= q_rows) continue;
     const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
-    T* orow = o + ((b * Sq + q0 + r) * H + h) * D;
+    float* orow = o + ((b * Sq + q0 + r) * H + h) * D;
 #pragma unroll
     for (int c = 0; c < kDC; ++c)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        store(orow + tx * 4 + 32 * c + e, acc[i][c][e] * inv);
+        orow[tx * 4 + 32 * c + e] = acc[i][c][e] * inv;
   }
 }
 
@@ -254,61 +236,42 @@ constexpr size_t smem_bytes(int d) {
          ((size_t)(kBQ + kBK) * (d + kPad) + (size_t)kBQ * (kBK + kPad));
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int64_t B,
            int64_t H, int64_t KV, int64_t Sq, int64_t Skv, int causal,
            float scale, cudaStream_t stream) {
-  auto kernel = flash_forward<T, D>;
+  auto kernel = flash_forward<D>;
   const size_t smem = smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((Sq + kBQ - 1) / kBQ), (unsigned)(B * H));
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, KV, Sq, Skv, causal,
-      scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), H, KV, Sq, Skv,
+      causal, scale);
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* o, int64_t B,
-             int64_t H, int64_t KV, int64_t Sq, int64_t Skv, int64_t d,
-             int causal, float scale, cudaStream_t stream) {
-  switch (d) {
-    case 32:
-      return launch<T, 32>(q, k, v, o, B, H, KV, Sq, Skv, causal, scale,
-                           stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, B, H, KV, Sq, Skv, causal, scale,
-                           stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, B, H, KV, Sq, Skv, causal, scale,
-                            stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// q, o: [B, Sq, H, d]; k, v: [B, Skv, KV, d]; all contiguous and of one
-// type (dtype 0 f32, 1 bf16); d in {32, 64, 128}; H a multiple of KV;
-// Sq, Skv >= 1; B * H <= 65535. scale multiplies q . k.
+// q, o: [B, Sq, H, d]; k, v: [B, Skv, KV, d]; all contiguous float32;
+// d in {32, 64, 128}; H a multiple of KV; Sq, Skv >= 1; B * H <= 65535.
+// scale multiplies q . k.
 int flash_attention_forward(const void* q, const void* k, const void* v,
-                            void* o, int dtype, int64_t B, int64_t H,
-                            int64_t KV, int64_t Sq, int64_t Skv, int64_t d,
-                            int causal, float scale, void* stream) {
+                            void* o, int64_t B, int64_t H, int64_t KV,
+                            int64_t Sq, int64_t Skv, int64_t d, int causal,
+                            float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kF32:
-      return launch_d<float>(q, k, v, o, B, H, KV, Sq, Skv, d, causal, scale,
-                             s);
-    case kBF16:
-      return launch_d<__nv_bfloat16>(q, k, v, o, B, H, KV, Sq, Skv, d, causal,
-                                     scale, s);
+  switch (d) {
+    case 32:
+      return launch<32>(q, k, v, o, B, H, KV, Sq, Skv, causal, scale, s);
+    case 64:
+      return launch<64>(q, k, v, o, B, H, KV, Sq, Skv, causal, scale, s);
+    case 128:
+      return launch<128>(q, k, v, o, B, H, KV, Sq, Skv, causal, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,298 +1,796 @@
-// Mamba-2 SSD chunk scan (arXiv:2405.21060) for Hopper (sm_90a).
+// Mamba-2 SSD chunk scan (arXiv:2405.21060) for Hopper (sm_90a), in three
+// passes over chunks.
 //
 // Replaces the TPU Pallas kernel ssd_scan_bhl / _ssd_kernel of the JAX
-// package (repro/kernels/ssd_scan/kernel.py). For every (b, h) it computes
-// the state-space recurrence
+// package (src/repro/kernels/ssd_scan/kernel.py:71, its pallas_call at
+// :80). For every (b, h) it computes the state-space recurrence
 //   h_t = exp(dt_t A_h) h_{t-1} + dt_t x_t B_t^T,   y_t = h_t C_t
 // with h [P, N] and y [P] per step, in the model layout x, y [B, L, H, P],
 // dt [B, L, H], A [H], B/C [B, L, G, N]. Head h reads group g = h / (H / G)
-// of B and C; no repeated copy of them is made. x, B and C are f32 or bf16
-// (widened on load), dt and A f32; y is rounded to x's type once.
+// of B and C; no repeated copy of them is made. x, B and C are f32 or
+// bf16, dt and A f32; y (without the D x skip) is rounded to x's type once.
+// Steps past L read as zeros (dt = 0 leaves h unchanged), so the caller
+// pads nothing.
 //
-// It evaluates the recurrence chunk by chunk, as the TPU kernel does (state
-// space duality). Per chunk of Q steps, with cum the running sum of dt A
-// inside the chunk and total its last value:
-//   y  = (C B^T . exp(cum_i - cum_j) . dt_j, for j <= i) X
-//        + exp(cum) . (C h^T)                                  (carry-in)
-//   h' = exp(total) h + X^T (B . dt . exp(total - cum))        (update)
-// The result does not depend on Q beyond rounding, so the kernel uses its
-// own Q = 64 whatever chunk the caller names: a chunk of 256 rows of B and
-// C at N = 128 would be 128 KB each in fp32, past shared memory.
+// It evaluates the recurrence chunk by chunk (state space duality). Per
+// chunk c of kQ = 64 steps, with cum the running sum of dt A inside it and
+// total_c its last value:
+//   1. chunk_state  (grid n_chunks x B*H): w_j = dt_j exp(total_c - cum_j),
+//      S_c = X_c^T (B_c . w) [P, N], fp32, written with total_c;
+//   2. state_pass   (grid tiles of N*P x B*H): per state element, in chunk
+//      order, h_in[c] = running; running = exp(total_c) running + S_c. In
+//      fp32 it overwrites S with h_in in place; in bf16 it writes h_in,
+//      rounded to bf16, to a buffer of its own;
+//   3. chunk_output (grid n_chunks x B*H):
+//      y = (C B^T . exp(cum_i - cum_j) . dt_j, for j <= i) X
+//          + exp(cum_i) (C h_in[c]^T).
+// The result does not depend on the chunk beyond rounding; the kernel
+// takes its own kQ whatever chunk the caller names. The states are stored
+// [N][P] (p contiguous) in fp32, 4 B H P N (L / kQ) bytes: 134 MB at
+// mamba2-1.3b width (B 1, L 4,096, H 64, P 64, N 128), written by pass 1
+// and read by pass 2; h_in is written by pass 2 and read by pass 3, 134 MB
+// in fp32 and 67 MB in bf16.
 //
-// What bounds it: operations, about 2 Q (N + P) + 4 N P flops per step
-// against (2 P + 2 N + 1) values read or written; at mamba2-1.3b width
-// (P = 64, N = 128) that is far past the ridge point. This first version
-// runs fp32 FMA on the CUDA cores, not wgmma.
+// What bounds it: bytes in bf16, operations in fp32. The function must
+// read x, dt, B, C and write y once: 70.3 MB in bf16 at that width,
+// 0.021 ms at 3.35 TB/s; its least work is the recurrence's 4 N P flops
+// per step and head, 8.59 GFLOP, 0.128 ms at 67 TFLOP/s of fp32. The
+// chunked form does 15.0 GFLOP at kQ = 64 and moves the states' 536 MB
+// (fp32) or 402 MB (bf16) on top, 0.16 or 0.12 ms: the price of running
+// every chunk in parallel.
 //
 // What the design does about it:
-//  * One block of 256 threads per (b, h); the chunks run in order inside
-//    it, with h kept in fp32 in shared memory between them. The grid is
-//    only B * H blocks (64 at mamba2-1.3b with B = 1): correct, not fast.
-//    Splitting the work into chunk-state, state-passing and chunk-output
-//    passes is a later step.
-//  * Each product is spread over a 16 x 16 grid of threads, each thread
-//    holding a register tile of outputs; shared-memory rows are padded to
-//    an odd length, so the column-strided reads hit distinct banks.
+//  * Every pass spans the chunks: n_chunks x B*H blocks (4,096 at that
+//    width) in place of one block per (b, h) walking its chunks in order.
+//    Only pass 2 walks the chunks, elementwise and memory-bound.
+//  * The running sum of dt A is a warp-level scan. Each block puts all
+//    its tile loads in flight at once (cp.async, 16 bytes each) before it
+//    waits.
+//  * bf16: the four chunk products run on the tensor cores as wgmma
+//    m64n64k16 with fp32 accumulators, one warpgroup per block: a chunk's
+//    64 steps are one 64-row tile. Operands are staged by cp.async into
+//    128-byte swizzled tiles (sm90.cuh); C and B are K-major, X, h_in and
+//    (B . w)^T MN-major (trans), and the masked decay matrix M goes from
+//    G's accumulators to the register-A operand of M X without shared
+//    memory. The operands computed in between are rounded to bf16 where
+//    the products take them: B . w in pass 1, h_in in pass 2, M in pass 3.
+//  * fp32: the same passes on CUDA-core FMA (the JAX package's fp32
+//    tolerance rules out TF32), each thread a 4 x 4 to 8 x 8 register
+//    tile read from shared memory in 16-byte vectors.
 //  * exp(cum_i - cum_j) is taken only where j <= i: above the diagonal the
-//    exponent is positive and may overflow to inf, and inf . 0 is NaN.
-//  * Steps past L are read as zeros (dt = 0 leaves h unchanged), so the
-//    caller pads nothing.
-//  * No atomics and a fixed order of every sum: reruns are bit-identical.
+//    exponent is positive and may overflow to inf, and inf . 0 is NaN. In
+//    fp32 the blocks of C B^T above the diagonal are not computed.
+//  * P and N are padded with zeros in shared memory; the wrapper pads
+//    nothing. No atomics and a fixed order of every sum: reruns are
+//    bit-identical.
 //
-// Plain C interface, loaded with ctypes. The launch goes to the caller's
-// stream; nothing here allocates or synchronises. The entry point returns
-// the cudaError_t of its launch (0 on success).
+// Plain C interface, loaded with ctypes. The launches go to the caller's
+// stream; nothing here allocates or synchronises: the caller passes the
+// states' scratch. The entry point returns the cudaError_t of its launches
+// (0 on success).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 
 constexpr int kQ = 64;          // steps per chunk
-constexpr int kGrid = 16;       // threads along each side of a product
-constexpr int kThreads = kGrid * kGrid;
-constexpr int kMaxTile = 8;     // outputs per thread along a side: dims <= 128
-constexpr int kMaxDim = kGrid * kMaxTile;
+constexpr int kLdQ = kQ + 4;    // row stride of [*, kQ] fp32 tiles
+constexpr int kMaxDim = 128;    // P and N
+constexpr int kFmaThreads = 256;
+constexpr int kWgThreads = 128;   // one warpgroup
+constexpr int kPassThreads = 256;
 
 enum DType { kF32 = 0, kBF16 = 1 };
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
+__host__ __device__ constexpr int round_up(int v, int m) {
+  return (v + m - 1) / m * m;
 }
 
-// the shared-memory layout; rows padded to odd lengths
-struct Layout {
-  int P, N;
-  __host__ __device__ int xs() const { return P + 1; }   // X  [kQ][P + 1]
-  __host__ __device__ int bs() const { return N + 1; }   // B, C [kQ][N + 1]
-  __host__ __device__ int hs() const { return N + 1; }   // h  [P][N + 1]
-  __host__ __device__ int ms() const { return kQ + 1; }  // M  [kQ][kQ + 1]
-  __host__ __device__ size_t floats() const {
-    return (size_t)kQ * xs() + 2 * (size_t)kQ * bs() + (size_t)P * hs() +
-           (size_t)kQ * ms() + 3 * kQ;
+// The indices of one (chunk, b, h) block.
+struct Chunk {
+  int64_t b, h, g, bh, t0;
+  int nv;  // steps of the chunk inside L
+  __device__ Chunk(int64_t L, int64_t H, int64_t G) {
+    bh = blockIdx.y;
+    b = bh / H;
+    h = bh % H;
+    g = h / (H / G);
+    t0 = static_cast<int64_t>(blockIdx.x) * kQ;
+    nv = static_cast<int>(L - t0 < kQ ? L - t0 : kQ);
   }
 };
 
-// rows [t0, t0 + kQ) of a [*, width] slab whose step t starts at
-// base + t * row_stride, into smem [kQ][ld]; steps >= L are zero
-template <typename T>
-__device__ __forceinline__ void stage(float* smem, int ld, const T* base,
-                                      int64_t row_stride, int width,
-                                      int64_t t0, int64_t L) {
-  for (int e = threadIdx.x; e < kQ * width; e += kThreads) {
-    const int r = e / width;
-    const int c = e % width;
-    const int64_t t = t0 + r;
-    smem[r * ld + c] = t < L ? to_f32(base[t * row_stride + c]) : 0.f;
+// dt of the chunk's steps into dts[kQ] (0 past L)
+__device__ __forceinline__ void stage_dt(float* dts, const float* dt,
+                                         const Chunk& ch, int64_t L,
+                                         int64_t H) {
+  if (threadIdx.x < kQ)
+    dts[threadIdx.x] =
+        threadIdx.x < ch.nv ? dt[(ch.b * L + ch.t0 + threadIdx.x) * H + ch.h]
+                            : 0.f;
+}
+
+// inclusive running sum of dt a over the chunk, by the first warp: lane l
+// holds steps 2l and 2l + 1
+__device__ __forceinline__ void chunk_cumsum(const float* dts, float a,
+                                             float* cum) {
+  if (threadIdx.x < 32) {
+    const int l = threadIdx.x;
+    const float v0 = dts[2 * l] * a, v1 = dts[2 * l + 1] * a;
+    float s = v0 + v1;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float n = __shfl_up_sync(0xffffffffu, s, o);
+      if (l >= o) s += n;
+    }
+    float excl = __shfl_up_sync(0xffffffffu, s, 1);
+    if (l == 0) excl = 0.f;
+    cum[2 * l] = excl + v0;
+    cum[2 * l + 1] = excl + v0 + v1;
   }
 }
 
-// grid (B * H), block kThreads
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ssd_forward(const T* __restrict__ x, const float* __restrict__ dt,
-            const float* __restrict__ A, const T* __restrict__ Bm,
-            const T* __restrict__ Cm, T* __restrict__ y, int64_t L,
-            int64_t H, int64_t G, int P, int N) {
-  extern __shared__ float smem[];
-  const Layout lay{P, N};
-  float* Xs = smem;
-  float* Bs = Xs + kQ * lay.xs();
-  float* Cs = Bs + kQ * lay.bs();
-  float* Hs = Cs + kQ * lay.bs();
-  float* Ms = Hs + P * lay.hs();
-  float* dts = Ms + kQ * lay.ms();
+// 16 bytes from global to shared memory without a register round trip;
+// with ok false it writes zeros and reads nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// rows [0, rows) x cols [0, wpad) of an fp32 slab whose row r starts at
+// src + r * stride, into shared dst[r * ld + c]; zeros past nv rows or
+// width columns. Where the rows are 16-byte aligned every thread puts all
+// its copies in flight at once (cp.async; the caller waits with
+// cp_async_wait), else plain loads. wpad and ld are multiples of 4.
+__device__ __forceinline__ void stage_rows(float* dst, int ld,
+                                           const float* src, int64_t stride,
+                                           int width, int wpad, int rows,
+                                           int nv) {
+  if (width % 4 == 0 && stride % 4 == 0 &&
+      reinterpret_cast<uintptr_t>(src) % 16 == 0) {
+    const int vw = wpad / 4;
+    for (int e = threadIdx.x; e < rows * vw; e += blockDim.x) {
+      const int r = e / vw, c = (e % vw) * 4;
+      const bool ok = r < nv && c < width;
+      cp_async16(dst + r * ld + c, ok ? src + r * stride + c : src, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * wpad; e += blockDim.x) {
+      const int r = e / wpad, c = e % wpad;
+      dst[r * ld + c] = r < nv && c < width ? src[r * stride + c] : 0.f;
+    }
+  }
+}
+
+// ---- wgmma staging (bf16) ----------------------------------------------------
+
+// rows [0, rows) x cols [0, cpad) of a bf16 slab (row r at src + r *
+// stride) into a 128-byte-swizzled tile (sm90.cuh): cpad / 64 chunks of
+// [rows][64], zeros past nv rows or width columns. cpad is a multiple of
+// 64 and rows of 8; 16-byte rows go by cp.async (the caller waits with
+// cp_async_wait), others by plain loads.
+__device__ __forceinline__ void stage_sw128(__nv_bfloat16* dst,
+                                            const __nv_bfloat16* src,
+                                            int64_t stride, int width,
+                                            int cpad, int rows, int nv) {
+  const bool vec = width % 8 == 0 && stride % 8 == 0 &&
+                   reinterpret_cast<uintptr_t>(src) % 16 == 0;
+  const int vpr = cpad / 8;   // 16-byte vectors a row
+  uint8_t* base = reinterpret_cast<uint8_t*>(dst);
+  for (int e = threadIdx.x; e < rows * vpr; e += blockDim.x) {
+    const int r = e / vpr, v = e % vpr, c = 8 * v;
+    uint8_t* d = base + ((size_t)(v / 8) * rows + r) * 128 +
+                 (((v % 8) ^ (r % 8)) << 4);
+    if (vec) {
+      const bool ok = r < nv && c < width;
+      cp_async16(d, ok ? src + r * stride + c : src, ok);
+    } else {
+      alignas(16) __nv_bfloat16 t[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        t[u] = r < nv && c + u < width ? src[r * stride + c + u]
+                                       : __float2bfloat16(0.f);
+      *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(t);
+    }
+  }
+}
+
+// generic-proxy writes to shared memory (plain stores, cp.async) made
+// visible to wgmma, which reads through the async proxy; then a barrier
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// ---- pass 1: chunk states ---------------------------------------------------
+
+// fp32: S[n][p] = sum_j B[j][n] w_j X[j][p]; thread (ty, tx) holds n =
+// 4 ty + 64 a + e, p = 4 tx + 64 c + f
+__global__ void __launch_bounds__(kFmaThreads)
+chunk_state_fma(const float* __restrict__ x, const float* __restrict__ dt,
+                const float* __restrict__ A, const float* __restrict__ Bm,
+                float* __restrict__ states, float* __restrict__ totals,
+                int64_t L, int64_t H, int64_t G, int P, int N) {
+  extern __shared__ float4 smem4[];
+  const int PP = round_up(P, 64), NP = round_up(N, 64);
+  float* Xs = reinterpret_cast<float*>(smem4);  // [kQ][PP]
+  float* Bs = Xs + kQ * PP;                     // [kQ][NP], then B . w
+  float* dts = Bs + kQ * NP;
   float* cum = dts + kQ;
-  float* wts = cum + kQ;            // dt_j exp(total - cum_j)
+  float* ws = cum + kQ;
+  const Chunk ch(L, H, G);
+  stage_rows(Xs, PP, x + ((ch.b * L + ch.t0) * H + ch.h) * P, H * P, P, PP,
+             kQ, ch.nv);
+  stage_rows(Bs, NP, Bm + ((ch.b * L + ch.t0) * G + ch.g) * N, G * N, N, NP,
+             kQ, ch.nv);
+  stage_dt(dts, dt, ch, L, H);
+  cp_async_wait();
+  __syncthreads();
+  chunk_cumsum(dts, A[ch.h], cum);
+  __syncthreads();
+  const float total = cum[kQ - 1];
+  if (threadIdx.x < kQ)
+    ws[threadIdx.x] = dts[threadIdx.x] * expf(total - cum[threadIdx.x]);
+  __syncthreads();
+  for (int e = threadIdx.x; e < kQ * NP; e += blockDim.x) Bs[e] *= ws[e / NP];
+  __syncthreads();
 
-  const int64_t b = blockIdx.x / H;
-  const int64_t h = blockIdx.x % H;
-  const int64_t g = h / (H / G);
-  const float a_h = A[h];
-  const int tx = threadIdx.x % kGrid;
-  const int ty = threadIdx.x / kGrid;
-  const int np = (P + kGrid - 1) / kGrid;   // register tile along P
-  const int nn = (N + kGrid - 1) / kGrid;   // register tile along N
-
-  const T* xb = x + (b * L * H + h) * P;     // step t at xb + t * H * P
-  const T* bb = Bm + (b * L * G + g) * N;    // step t at bb + t * G * N
-  const T* cb = Cm + (b * L * G + g) * N;
-  const float* db = dt + b * L * H + h;      // step t at db + t * H
-  T* yb = y + (b * L * H + h) * P;
-
-  for (int e = threadIdx.x; e < P * lay.hs(); e += kThreads) Hs[e] = 0.f;
-
-  for (int64_t t0 = 0; t0 < L; t0 += kQ) {
-    __syncthreads();  // the previous chunk's state update is done
-    stage(Xs, lay.xs(), xb, H * P, P, t0, L);
-    stage(Bs, lay.bs(), bb, G * N, N, t0, L);
-    stage(Cs, lay.bs(), cb, G * N, N, t0, L);
-    if (threadIdx.x < kQ) {
-      const int64_t t = t0 + threadIdx.x;
-      dts[threadIdx.x] = t < L ? db[t * H] : 0.f;
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {       // inclusive running sum of dt A, in order
-      float c = 0.f;
-      for (int i = 0; i < kQ; ++i) {
-        c += dts[i] * a_h;
-        cum[i] = c;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int na = NP / 64, nc = PP / 64;
+  float acc[2][4][2][4];
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int f = 0; f < 4; ++f) acc[a][e][c][f] = 0.f;
+#pragma unroll 4
+  for (int j = 0; j < kQ; ++j) {
+    float4 bv[2], xv[2];
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+      if (a < na)
+        bv[a] = *reinterpret_cast<const float4*>(Bs + j * NP + 4 * ty + 64 * a);
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+      if (c < nc)
+        xv[c] = *reinterpret_cast<const float4*>(Xs + j * PP + 4 * tx + 64 * c);
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      if (a >= na) break;
+      const float bs[4] = {bv[a].x, bv[a].y, bv[a].z, bv[a].w};
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        if (c >= nc) break;
+        const float xs[4] = {xv[c].x, xv[c].y, xv[c].z, xv[c].w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+#pragma unroll
+          for (int f = 0; f < 4; ++f)
+            acc[a][e][c][f] = fmaf(bs[e], xs[f], acc[a][e][c][f]);
       }
     }
-    __syncthreads();
-    const float total = cum[kQ - 1];
-    if (threadIdx.x < kQ)
-      wts[threadIdx.x] = dts[threadIdx.x] * expf(total - cum[threadIdx.x]);
-
-    // M[i][j] = (C_i . B_j) exp(cum_i - cum_j) dt_j for j <= i, else 0;
-    // i = ty + 16 a, j = tx + 16 c
-    {
-      float acc[kQ / kGrid][kQ / kGrid];
+  }
+  float* S = states + (ch.bh * gridDim.x + blockIdx.x) * (int64_t)N * P;
 #pragma unroll
-      for (int a = 0; a < kQ / kGrid; ++a)
+  for (int a = 0; a < 2; ++a)
 #pragma unroll
-        for (int c = 0; c < kQ / kGrid; ++c) acc[a][c] = 0.f;
-      for (int n = 0; n < N; ++n) {
-        float cv[kQ / kGrid], bv[kQ / kGrid];
+    for (int e = 0; e < 4; ++e) {
+      const int n = 4 * ty + 64 * a + e;
+      if (a >= na || n >= N) continue;
 #pragma unroll
-        for (int a = 0; a < kQ / kGrid; ++a)
-          cv[a] = Cs[(ty + kGrid * a) * lay.bs() + n];
+      for (int c = 0; c < 2; ++c) {
+        const int p = 4 * tx + 64 * c;
+        if (c >= nc || p >= P) continue;
+        float* sp = S + n * P + p;
+        if (P % 4 == 0)
+          *reinterpret_cast<float4*>(sp) =
+              make_float4(acc[a][e][c][0], acc[a][e][c][1], acc[a][e][c][2],
+                          acc[a][e][c][3]);
+        else
 #pragma unroll
-        for (int c = 0; c < kQ / kGrid; ++c)
-          bv[c] = Bs[(tx + kGrid * c) * lay.bs() + n];
-#pragma unroll
-        for (int a = 0; a < kQ / kGrid; ++a)
-#pragma unroll
-          for (int c = 0; c < kQ / kGrid; ++c)
-            acc[a][c] = fmaf(cv[a], bv[c], acc[a][c]);
-      }
-#pragma unroll
-      for (int a = 0; a < kQ / kGrid; ++a)
-#pragma unroll
-        for (int c = 0; c < kQ / kGrid; ++c) {
-          const int i = ty + kGrid * a, j = tx + kGrid * c;
-          Ms[i * lay.ms() + j] =
-              j <= i ? acc[a][c] * expf(cum[i] - cum[j]) * dts[j] : 0.f;
-        }
-    }
-    __syncthreads();
-
-    // y[i][p] = sum_j M[i][j] X[j][p] + exp(cum_i) sum_n C[i][n] h[p][n];
-    // i = ty + 16 a, p = tx + 16 c
-    {
-      float ya[kQ / kGrid][kMaxTile], yc[kQ / kGrid][kMaxTile];
-#pragma unroll
-      for (int a = 0; a < kQ / kGrid; ++a)
-#pragma unroll
-        for (int c = 0; c < kMaxTile; ++c) ya[a][c] = yc[a][c] = 0.f;
-      for (int j = 0; j < kQ; ++j) {
-        float mv[kQ / kGrid];
-#pragma unroll
-        for (int a = 0; a < kQ / kGrid; ++a)
-          mv[a] = Ms[(ty + kGrid * a) * lay.ms() + j];
-#pragma unroll
-        for (int c = 0; c < kMaxTile; ++c) {
-          if (c >= np) break;
-          const int p = tx + kGrid * c;
-          const float xv = p < P ? Xs[j * lay.xs() + p] : 0.f;
-#pragma unroll
-          for (int a = 0; a < kQ / kGrid; ++a)
-            ya[a][c] = fmaf(mv[a], xv, ya[a][c]);
-        }
-      }
-      for (int n = 0; n < N; ++n) {
-        float cv[kQ / kGrid];
-#pragma unroll
-        for (int a = 0; a < kQ / kGrid; ++a)
-          cv[a] = Cs[(ty + kGrid * a) * lay.bs() + n];
-#pragma unroll
-        for (int c = 0; c < kMaxTile; ++c) {
-          if (c >= np) break;
-          const int p = tx + kGrid * c;
-          const float hv = p < P ? Hs[p * lay.hs() + n] : 0.f;
-#pragma unroll
-          for (int a = 0; a < kQ / kGrid; ++a)
-            yc[a][c] = fmaf(cv[a], hv, yc[a][c]);
-        }
-      }
-#pragma unroll
-      for (int a = 0; a < kQ / kGrid; ++a) {
-        const int i = ty + kGrid * a;
-        const int64_t t = t0 + i;
-        if (t >= L) continue;
-        const float e = expf(cum[i]);
-#pragma unroll
-        for (int c = 0; c < kMaxTile; ++c) {
-          if (c >= np) break;
-          const int p = tx + kGrid * c;
-          if (p < P) store(yb + t * H * P + p, ya[a][c] + e * yc[a][c]);
-        }
+          for (int f = 0; f < 4; ++f)
+            if (p + f < P) sp[f] = acc[a][e][c][f];
       }
     }
-    __syncthreads();  // every read of the old h is done
+  if (threadIdx.x == 0) totals[ch.bh * gridDim.x + blockIdx.x] = total;
+}
 
-    // h[p][n] = exp(total) h[p][n] + sum_j X[j][p] B[j][n] w_j;
-    // p = ty + 16 a, n = tx + 16 c
-    {
-      float acc[kMaxTile][kMaxTile];
+// bf16: the same product on wgmma, one warpgroup: 64 x 64 output tiles
+// (64 state rows n by 64 columns p), K = the chunk's kQ steps. B . w and X
+// lie [j][*] in 128-byte swizzled tiles, so both operands are MN-major
+// (trans-a, trans-b).
+__global__ void __launch_bounds__(kWgThreads)
+chunk_state_wgmma(const __nv_bfloat16* __restrict__ x,
+                  const float* __restrict__ dt, const float* __restrict__ A,
+                  const __nv_bfloat16* __restrict__ Bm,
+                  float* __restrict__ states, float* __restrict__ totals,
+                  int64_t L, int64_t H, int64_t G, int P, int N) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const int NC = round_up(N, 64), PC = round_up(P, 64);
+  __nv_bfloat16* Bs = reinterpret_cast<__nv_bfloat16*>(align1024(smem_raw));
+  __nv_bfloat16* Xs = Bs + kQ * NC;                  // [kQ][PC], swizzled
+  float* dts = reinterpret_cast<float*>(Xs + kQ * PC);
+  float* cum = dts + kQ;
+  float* ws = cum + kQ;
+  const Chunk ch(L, H, G);
+  stage_sw128(Bs, Bm + ((ch.b * L + ch.t0) * G + ch.g) * N, G * N, N, NC, kQ,
+              ch.nv);
+  stage_sw128(Xs, x + ((ch.b * L + ch.t0) * H + ch.h) * P, H * P, P, PC, kQ,
+              ch.nv);
+  stage_dt(dts, dt, ch, L, H);
+  cp_async_wait();
+  __syncthreads();
+  chunk_cumsum(dts, A[ch.h], cum);
+  __syncthreads();
+  const float total = cum[kQ - 1];
+  if (threadIdx.x < kQ)
+    ws[threadIdx.x] = dts[threadIdx.x] * expf(total - cum[threadIdx.x]);
+  __syncthreads();
+  // B . w, rounded to bf16 (a rounding point): a 16-byte vector of the
+  // swizzled tile lies in one row j
+  for (int e = threadIdx.x; e < kQ * NC / 8; e += blockDim.x) {
+    const float w = ws[(e % (kQ * 8)) / 8];
+    __nv_bfloat162* v = reinterpret_cast<__nv_bfloat162*>(Bs) + 4 * e;
 #pragma unroll
-      for (int a = 0; a < kMaxTile; ++a)
+    for (int u = 0; u < 4; ++u) {
+      const float2 f = __bfloat1622float2(v[u]);
+      v[u] = __floats2bfloat162_rn(f.x * w, f.y * w);
+    }
+  }
+  fence_proxy_async();
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row = 16 * warp + lane / 4, cq = lane % 4;
+  const uint32_t bs = smem_u32(Bs), xs = smem_u32(Xs);
+  constexpr uint32_t kChunk = kQ * 128;   // bytes of a 64-column chunk
+  float* S = states + (ch.bh * gridDim.x + blockIdx.x) * (int64_t)N * P;
+  for (int mt = 0; mt < NC / 64; ++mt)
+    for (int pt = 0; pt < PC / 64; ++pt) {
+      float acc[32];
+      wgmma_fence();
 #pragma unroll
-        for (int c = 0; c < kMaxTile; ++c) acc[a][c] = 0.f;
-      for (int j = 0; j < kQ; ++j) {
-        const float w = wts[j];
-        float xv[kMaxTile];
+      for (int kk = 0; kk < kQ / 16; ++kk)
+        wgmma_ss_m64n64<1, 1>(
+            acc, make_desc(bs + mt * kChunk + kk * 2048, kChunk, 1024, 1),
+            make_desc(xs + pt * kChunk + kk * 2048, kChunk, 1024, 1), kk > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_operands(acc);
 #pragma unroll
-        for (int a = 0; a < kMaxTile; ++a) {
-          const int p = ty + kGrid * a;
-          xv[a] = p < P ? Xs[j * lay.xs() + p] : 0.f;
-        }
+      for (int nb = 0; nb < 8; ++nb)
 #pragma unroll
-        for (int c = 0; c < kMaxTile; ++c) {
-          if (c >= nn) break;
-          const int n = tx + kGrid * c;
-          const float bw = n < N ? Bs[j * lay.bs() + n] * w : 0.f;
-#pragma unroll
-          for (int a = 0; a < kMaxTile; ++a) {
-            if (a >= np) break;
-            acc[a][c] = fmaf(xv[a], bw, acc[a][c]);
+        for (int hrow = 0; hrow < 2; ++hrow) {
+          const int n = 64 * mt + row + 8 * hrow;
+          const int p = 64 * pt + 8 * nb + 2 * cq;
+          if (n >= N || p >= P) continue;
+          float* sp = S + n * P + p;
+          const float a0 = acc[4 * nb + 2 * hrow], a1 = acc[4 * nb + 2 * hrow + 1];
+          if (P % 2 == 0) {
+            *reinterpret_cast<float2*>(sp) = make_float2(a0, a1);
+          } else {
+            sp[0] = a0;
+            if (p + 1 < P) sp[1] = a1;
           }
         }
-      }
-      const float decay = expf(total);
+    }
+  if (threadIdx.x == 0) totals[ch.bh * gridDim.x + blockIdx.x] = total;
+}
+
+// ---- pass 2: the states entering each chunk ---------------------------------
+
+// grid (ceil(N P / kPassThreads), B*H): the states S [B*H][nc][N*P] to
+// h_in of the same layout, in place for fp32 (hin == states), into a bf16
+// copy for the bf16 path (the rounding point of its carry-in)
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+template <typename OutT>
+__global__ void __launch_bounds__(kPassThreads)
+state_pass(const float* states, const float* __restrict__ totals,
+           OutT* hin, int nc, int NPe) {
+  const int e = blockIdx.x * kPassThreads + threadIdx.x;
+  if (e >= NPe) return;
+  // this form, with B*H*nc < 2^31 checked at launch, ran 2.4x faster in
+  // fp32 than one widened to 64 bits first (PERF.md §6)
+  const int64_t base = blockIdx.y * nc * (int64_t)NPe + e;
+  const float* s = states + base;
+  OutT* o = hin + base;
+  const float* tot = totals + blockIdx.y * (int64_t)nc;
+  constexpr int kInFlight = 8;
+  float run = 0.f;
+  for (int c0 = 0; c0 < nc; c0 += kInFlight) {
+    // every load of the batch before its first store: in fp32 the stores
+    // may alias the loads, so the compiler would not hoist them itself
+    float v[kInFlight], d[kInFlight];
 #pragma unroll
-      for (int a = 0; a < kMaxTile; ++a) {
-        const int p = ty + kGrid * a;
-        if (a >= np || p >= P) break;
-#pragma unroll
-        for (int c = 0; c < kMaxTile; ++c) {
-          const int n = tx + kGrid * c;
-          if (c >= nn || n >= N) break;
-          float* hp = Hs + p * lay.hs() + n;
-          *hp = decay * *hp + acc[a][c];
-        }
+    for (int u = 0; u < kInFlight; ++u)
+      if (c0 + u < nc) {
+        v[u] = s[(c0 + u) * (int64_t)NPe];
+        d[u] = tot[c0 + u];
       }
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u) {
+      if (c0 + u >= nc) break;
+      put(o + (c0 + u) * (int64_t)NPe, run);
+      run = fmaf(expf(d[u]), run, v[u]);
     }
   }
 }
 
-template <typename T>
-int launch(const void* x, const float* dt, const float* A, const void* Bm,
-           const void* Cm, void* y, int64_t B, int64_t L, int64_t H,
-           int64_t G, int P, int N, cudaStream_t stream) {
-  auto kernel = ssd_forward<T>;
-  const size_t smem = Layout{P, N}.floats() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)(B * H), kThreads, smem, stream>>>(
-      static_cast<const T*>(x), dt, A, static_cast<const T*>(Bm),
-      static_cast<const T*>(Cm), static_cast<T*>(y), L, H, G, P, N);
+// ---- pass 3: chunk outputs ----------------------------------------------------
+
+// fp32: G = C B^T and M = G . decay . dt (j <= i), thread (ty, tx) holding
+// i = ty + 16 e, j = tx + 16 f (f <= e: the blocks above the diagonal
+// stay 0); then y with i = ty + 16 e, p = 4 tx + 64 c + f. All tiles are
+// row-major, read in 16-byte vectors along their rows. Once G is in
+// registers, X and M take B's place in shared memory and X loads while the
+// carry-in computes, so two blocks fit an SM at mamba2-1.3b width.
+__host__ __device__ constexpr int out_fma_region(int N4, int PP) {
+  return kQ * (N4 + 4) > kQ * (PP + kLdQ) ? kQ * (N4 + 4) : kQ * (PP + kLdQ);
+}
+
+__global__ void __launch_bounds__(kFmaThreads, 2)
+chunk_output_fma(const float* __restrict__ x, const float* __restrict__ dt,
+                 const float* __restrict__ A, const float* __restrict__ Bm,
+                 const float* __restrict__ Cm, const float* __restrict__ hin,
+                 float* __restrict__ y, int64_t L, int64_t H, int64_t G,
+                 int P, int N) {
+  extern __shared__ float4 smem4[];
+  const int PP = round_up(P, 64), N4 = round_up(N, 4), ldn = N4 + 4;
+  float* Cs = reinterpret_cast<float*>(smem4);  // [kQ][ldn]
+  float* Bs = Cs + kQ * ldn;                    // [kQ][ldn], then X and M:
+  float* Xs = Bs;                               //   [kQ][PP]
+  float* Ms = Xs + kQ * PP;                     //   [kQ (i)][kLdQ (j)]
+  float* Hs = Bs + out_fma_region(N4, PP);      // [N4][PP]
+  float* dts = Hs + N4 * PP;
+  float* cum = dts + kQ;
+  const Chunk ch(L, H, G);
+  const int64_t bg = (ch.b * L + ch.t0) * G + ch.g;
+  stage_rows(Cs, ldn, Cm + bg * N, G * N, N, N4, kQ, ch.nv);
+  stage_rows(Bs, ldn, Bm + bg * N, G * N, N, N4, kQ, ch.nv);
+  stage_rows(Hs, PP, hin + (ch.bh * gridDim.x + blockIdx.x) * (int64_t)N * P,
+             P, P, PP, N4, N);
+  stage_dt(dts, dt, ch, L, H);
+  cp_async_wait();
+  __syncthreads();
+  chunk_cumsum(dts, A[ch.h], cum);
+  __syncthreads();
+
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float g[4][4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+#pragma unroll
+    for (int f = 0; f < 4; ++f) g[e][f] = 0.f;
+#pragma unroll 2
+  for (int n = 0; n < N4; n += 4) {
+    float4 cv[4], bv[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      cv[e] = *reinterpret_cast<const float4*>(Cs + (ty + 16 * e) * ldn + n);
+#pragma unroll
+    for (int f = 0; f < 4; ++f)
+      bv[f] = *reinterpret_cast<const float4*>(Bs + (tx + 16 * f) * ldn + n);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int f = 0; f <= e; ++f) {
+        g[e][f] = fmaf(cv[e].x, bv[f].x, g[e][f]);
+        g[e][f] = fmaf(cv[e].y, bv[f].y, g[e][f]);
+        g[e][f] = fmaf(cv[e].z, bv[f].z, g[e][f]);
+        g[e][f] = fmaf(cv[e].w, bv[f].w, g[e][f]);
+      }
+  }
+  __syncthreads();   // B is read: its region takes X and M
+  stage_rows(Xs, PP, x + ((ch.b * L + ch.t0) * H + ch.h) * P, H * P, P, PP,
+             kQ, ch.nv);
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      const int i = ty + 16 * e, j = tx + 16 * f;
+      Ms[i * kLdQ + j] =
+          j <= i ? g[e][f] * expf(cum[i] - cum[j]) * dts[j] : 0.f;
+    }
+
+  const int nc = PP / 64;
+  float acc[4][2][4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+#pragma unroll
+      for (int f = 0; f < 4; ++f) acc[e][c][f] = 0.f;
+  // the carry-in: sum_n C[i][n] h_in[n][p], then . exp(cum_i)
+#pragma unroll 2
+  for (int n = 0; n < N4; n += 4) {
+    float4 cv[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      cv[e] = *reinterpret_cast<const float4*>(Cs + (ty + 16 * e) * ldn + n);
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      if (c >= nc) break;
+      float4 hv[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        hv[u] = *reinterpret_cast<const float4*>(Hs + (n + u) * PP + 4 * tx +
+                                                 64 * c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float cs[4] = {cv[e].x, cv[e].y, cv[e].z, cv[e].w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          acc[e][c][0] = fmaf(cs[u], hv[u].x, acc[e][c][0]);
+          acc[e][c][1] = fmaf(cs[u], hv[u].y, acc[e][c][1]);
+          acc[e][c][2] = fmaf(cs[u], hv[u].z, acc[e][c][2]);
+          acc[e][c][3] = fmaf(cs[u], hv[u].w, acc[e][c][3]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float d = expf(cum[ty + 16 * e]);
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+#pragma unroll
+      for (int f = 0; f < 4; ++f) acc[e][c][f] *= d;
+  }
+  cp_async_wait();
+  __syncthreads();   // X has landed and M is written
+  // + M X, over j up to the thread's last row (M is 0 above the diagonal)
+  const int j_end = min(kQ, (ty + 48 + 4) & ~3);
+#pragma unroll 2
+  for (int j = 0; j < j_end; j += 4) {
+    float4 mv[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      mv[e] = *reinterpret_cast<const float4*>(Ms + (ty + 16 * e) * kLdQ + j);
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      if (c >= nc) break;
+      float4 xv[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        xv[u] = *reinterpret_cast<const float4*>(Xs + (j + u) * PP + 4 * tx +
+                                                 64 * c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float ms[4] = {mv[e].x, mv[e].y, mv[e].z, mv[e].w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          acc[e][c][0] = fmaf(ms[u], xv[u].x, acc[e][c][0]);
+          acc[e][c][1] = fmaf(ms[u], xv[u].y, acc[e][c][1]);
+          acc[e][c][2] = fmaf(ms[u], xv[u].z, acc[e][c][2]);
+          acc[e][c][3] = fmaf(ms[u], xv[u].w, acc[e][c][3]);
+        }
+      }
+    }
+  }
+  float* yb = y + ((ch.b * L + ch.t0) * H + ch.h) * P;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int i = ty + 16 * e;
+    if (i >= ch.nv) continue;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int p = 4 * tx + 64 * c;
+      if (c >= nc || p >= P) continue;
+      float* yp = yb + i * H * P + p;
+      if (P % 4 == 0)
+        *reinterpret_cast<float4*>(yp) = make_float4(
+            acc[e][c][0], acc[e][c][1], acc[e][c][2], acc[e][c][3]);
+      else
+#pragma unroll
+        for (int f = 0; f < 4; ++f)
+          if (p + f < P) yp[f] = acc[e][c][f];
+    }
+  }
+}
+
+// bf16 on wgmma, one warpgroup (warp w holds the steps i = 16 w + lane / 4
+// and i + 8): G = C B^T (both K-major), M = G . decay . dt rounded to bf16
+// in registers, where the accumulator layout of G is the register-A layout
+// of M X; then per 64 columns of p the carry-in C h_in^T (h_in [n][p],
+// MN-major), scaled by exp(cum_i), plus M X (X [j][p], MN-major).
+__global__ void __launch_bounds__(kWgThreads)
+chunk_output_wgmma(const __nv_bfloat16* __restrict__ x,
+                   const float* __restrict__ dt, const float* __restrict__ A,
+                   const __nv_bfloat16* __restrict__ Bm,
+                   const __nv_bfloat16* __restrict__ Cm,
+                   const __nv_bfloat16* __restrict__ hin,
+                   __nv_bfloat16* __restrict__ y, int64_t L, int64_t H,
+                   int64_t G, int P, int N) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const int NC = round_up(N, 64), PC = round_up(P, 64), NK = round_up(N, 16);
+  __nv_bfloat16* Cs = reinterpret_cast<__nv_bfloat16*>(align1024(smem_raw));
+  __nv_bfloat16* Bs = Cs + kQ * NC;   // [kQ][NC], swizzled, as Cs
+  __nv_bfloat16* Xs = Bs + kQ * NC;   // [kQ][PC]
+  __nv_bfloat16* Hs = Xs + kQ * PC;   // [NK][PC]
+  float* dts = reinterpret_cast<float*>(Hs + NK * PC);
+  float* cum = dts + kQ;
+  const Chunk ch(L, H, G);
+  const int64_t bg = (ch.b * L + ch.t0) * G + ch.g;
+  stage_sw128(Cs, Cm + bg * N, G * N, N, NC, kQ, ch.nv);
+  stage_sw128(Bs, Bm + bg * N, G * N, N, NC, kQ, ch.nv);
+  stage_sw128(Xs, x + ((ch.b * L + ch.t0) * H + ch.h) * P, H * P, P, PC, kQ,
+              ch.nv);
+  stage_sw128(Hs, hin + (ch.bh * gridDim.x + blockIdx.x) * (int64_t)N * P, P,
+              P, PC, NK, N);
+  stage_dt(dts, dt, ch, L, H);
+  cp_async_wait();
+  fence_proxy_async();
+  __syncthreads();
+  chunk_cumsum(dts, A[ch.h], cum);
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int cq = lane % 4;
+  const int i0 = 16 * warp + lane / 4, i1 = i0 + 8;
+  const uint32_t cs = smem_u32(Cs), bs = smem_u32(Bs), xs = smem_u32(Xs),
+                 hs = smem_u32(Hs);
+  constexpr uint32_t kChunk = kQ * 128;   // bytes of a 64-column chunk
+  const int nks = NK / 16;                // k-steps over n
+
+  float g[32];
+  wgmma_fence();
+  for (int kk = 0; kk < nks; ++kk) {
+    const uint32_t off = (kk / 4) * kChunk + (kk % 4) * 32;
+    wgmma_ss_m64n64<0, 0>(g, make_desc(cs + off, 16, 1024, 1),
+                          make_desc(bs + off, 16, 1024, 1), kk > 0);
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_operands(g);
+  uint32_t ma[4][4];   // M as the A operand: k-step kk = steps 16 kk..+15
+#pragma unroll
+  for (int nb = 0; nb < 8; ++nb) {
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e < 2 ? i0 : i1;
+      const int j = 8 * nb + 2 * cq + (e & 1);
+      v[e] = j <= i ? g[4 * nb + e] * expf(cum[i] - cum[j]) * dts[j] : 0.f;
+    }
+    ma[nb / 2][(nb % 2) * 2] = pack_bf16(v[0], v[1]);       // rounding point
+    ma[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(v[2], v[3]);
+  }
+
+  const float d0 = expf(cum[i0]), d1 = expf(cum[i1]);
+  __nv_bfloat16* yb = y + ((ch.b * L + ch.t0) * H + ch.h) * P;
+  for (int pt = 0; pt < PC / 64; ++pt) {
+    float acc[32];
+    wgmma_fence();
+    for (int kk = 0; kk < nks; ++kk)
+      wgmma_ss_m64n64<0, 1>(
+          acc,
+          make_desc(cs + (kk / 4) * kChunk + (kk % 4) * 32, 16, 1024, 1),
+          make_desc(hs + pt * NK * 128 + kk * 2048, NK * 128, 1024, 1),
+          kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_operands(acc);
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+      acc[4 * nb] *= d0;
+      acc[4 * nb + 1] *= d0;
+      acc[4 * nb + 2] *= d1;
+      acc[4 * nb + 3] *= d1;
+    }
+    fence_operands(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kQ / 16; ++kk)
+      wgmma_rs_m64n64_tb(acc, ma[kk],
+                         make_desc(xs + pt * kChunk + kk * 2048, kChunk, 1024,
+                                   1));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_operands(acc);
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+      for (int hrow = 0; hrow < 2; ++hrow) {
+        const int i = hrow ? i1 : i0;
+        const int p = 64 * pt + 8 * nb + 2 * cq;
+        if (i >= ch.nv || p >= P) continue;
+        __nv_bfloat16* yp = yb + i * H * P + p;
+        const float a0 = acc[4 * nb + 2 * hrow], a1 = acc[4 * nb + 2 * hrow + 1];
+        if (P % 2 == 0) {
+          *reinterpret_cast<__nv_bfloat162*>(yp) = __floats2bfloat162_rn(a0, a1);
+        } else {
+          yp[0] = __float2bfloat16(a0);
+          if (p + 1 < P) yp[1] = __float2bfloat16(a1);
+        }
+      }
+  }
+}
+
+// ---- launch -------------------------------------------------------------------
+
+template <typename K>
+int set_smem(K kernel, size_t bytes) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <typename OutT>
+int launch_state_pass(const float* states, const float* totals, OutT* hin,
+                      int64_t BH, int nc, int P, int N, cudaStream_t stream) {
+  const int NPe = P * N;
+  const dim3 grid((unsigned)((NPe + kPassThreads - 1) / kPassThreads),
+                  (unsigned)BH);
+  state_pass<OutT><<<grid, kPassThreads, 0, stream>>>(states, totals, hin, nc,
+                                                       NPe);
+  return (int)cudaGetLastError();
+}
+
+int launch_f32(const float* x, const float* dt, const float* A,
+               const float* Bm, const float* Cm, float* y, float* states,
+               float* totals, int64_t B, int64_t L, int64_t H, int64_t G,
+               int P, int N, cudaStream_t stream) {
+  const int nc = (int)((L + kQ - 1) / kQ);
+  const int PP = round_up(P, 64), NP = round_up(N, 64), N4 = round_up(N, 4);
+  const size_t s1 = sizeof(float) * ((size_t)kQ * (PP + NP) + 3 * kQ);
+  const size_t s3 = sizeof(float) * ((size_t)kQ * (N4 + 4) +
+                                     out_fma_region(N4, PP) +
+                                     (size_t)N4 * PP + 2 * kQ);
+  int err = set_smem(chunk_state_fma, s1);
+  if (!err) err = set_smem(chunk_output_fma, s3);
+  if (err) return err;
+  const dim3 grid((unsigned)nc, (unsigned)(B * H));
+  chunk_state_fma<<<grid, kFmaThreads, s1, stream>>>(x, dt, A, Bm, states,
+                                                     totals, L, H, G, P, N);
+  if ((err = (int)cudaGetLastError())) return err;
+  if ((err = launch_state_pass(states, totals, states, B * H, nc, P, N,
+                               stream)))
+    return err;
+  chunk_output_fma<<<grid, kFmaThreads, s3, stream>>>(x, dt, A, Bm, Cm,
+                                                      states, y, L, H, G, P, N);
+  return (int)cudaGetLastError();
+}
+
+int launch_bf16(const __nv_bfloat16* x, const float* dt, const float* A,
+                const __nv_bfloat16* Bm, const __nv_bfloat16* Cm,
+                __nv_bfloat16* y, float* states, __nv_bfloat16* hin,
+                float* totals, int64_t B, int64_t L, int64_t H, int64_t G,
+                int P, int N, cudaStream_t stream) {
+  const int nc = (int)((L + kQ - 1) / kQ);
+  const int NC = round_up(N, 64), PC = round_up(P, 64), NK = round_up(N, 16);
+  // 1,024 bytes of slack to align the swizzled tiles
+  const size_t s1 = 1024 + 2 * (size_t)kQ * (NC + PC) + 4 * 3 * kQ;
+  const size_t s3 = 1024 + 2 * ((size_t)2 * kQ * NC + (size_t)kQ * PC +
+                                (size_t)NK * PC) + 4 * 2 * kQ;
+  int err = set_smem(chunk_state_wgmma, s1);
+  if (!err) err = set_smem(chunk_output_wgmma, s3);
+  if (err) return err;
+  const dim3 grid((unsigned)nc, (unsigned)(B * H));
+  chunk_state_wgmma<<<grid, kWgThreads, s1, stream>>>(
+      x, dt, A, Bm, states, totals, L, H, G, P, N);
+  if ((err = (int)cudaGetLastError())) return err;
+  if ((err = launch_state_pass(states, totals, hin, B * H, nc, P, N, stream)))
+    return err;
+  chunk_output_wgmma<<<grid, kWgThreads, s3, stream>>>(
+      x, dt, A, Bm, Cm, hin, y, L, H, G, P, N);
   return (int)cudaGetLastError();
 }
 
@@ -300,25 +798,42 @@ int launch(const void* x, const float* dt, const float* A, const void* Bm,
 
 extern "C" {
 
+// the steps per chunk. The scratch: `states` holds B * H * ceil(L /
+// chunk) * N * P floats, `totals` B * H * ceil(L / chunk) floats, and for
+// bf16 `hin` as many bf16 values as `states` floats (ignored for f32,
+// whose states become h_in in place).
+int ssd_scan_chunk() { return kQ; }
+
 // x, y: [B, L, H, P]; dt: [B, L, H] f32; A: [H] f32; Bm, Cm: [B, L, G, N];
-// all contiguous; x, Bm, Cm and y of one type (dtype 0 f32, 1 bf16);
-// H a multiple of G; 1 <= P, N <= 128.
+// all contiguous; x, Bm, Cm and y of one type (dtype 0 f32, 1 bf16); H a
+// multiple of G; 1 <= P, N <= 128; B * H <= 65535; B * H * n_chunks <
+// 2^31.
 int ssd_scan_forward(const void* x, const void* dt, const void* A,
-                     const void* Bm, const void* Cm, void* y, int dtype,
-                     int64_t B, int64_t L, int64_t H, int64_t G, int64_t P,
-                     int64_t N, void* stream) {
-  if (P < 1 || N < 1 || P > kMaxDim || N > kMaxDim)
+                     const void* Bm, const void* Cm, void* y, void* states,
+                     void* hin, void* totals, int dtype, int64_t B, int64_t L,
+                     int64_t H, int64_t G, int64_t P, int64_t N,
+                     void* stream) {
+  if (P < 1 || N < 1 || P > kMaxDim || N > kMaxDim ||
+      B * H * ((L + kQ - 1) / kQ) >= (int64_t{1} << 31))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* dtf = static_cast<const float*>(dt);
   const float* Af = static_cast<const float*>(A);
+  float* st = static_cast<float*>(states);
+  float* tot = static_cast<float*>(totals);
   switch (dtype) {
     case kF32:
-      return launch<float>(x, dtf, Af, Bm, Cm, y, B, L, H, G, (int)P, (int)N,
-                           s);
+      return launch_f32(static_cast<const float*>(x), dtf, Af,
+                        static_cast<const float*>(Bm),
+                        static_cast<const float*>(Cm), static_cast<float*>(y),
+                        st, tot, B, L, H, G, (int)P, (int)N, s);
     case kBF16:
-      return launch<__nv_bfloat16>(x, dtf, Af, Bm, Cm, y, B, L, H, G, (int)P,
-                                   (int)N, s);
+      return launch_bf16(static_cast<const __nv_bfloat16*>(x), dtf, Af,
+                         static_cast<const __nv_bfloat16*>(Bm),
+                         static_cast<const __nv_bfloat16*>(Cm),
+                         static_cast<__nv_bfloat16*>(y), st,
+                         static_cast<__nv_bfloat16*>(hin), tot, B, L, H, G,
+                         (int)P, (int)N, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -2,10 +2,14 @@
 
 ``ssd_scan_blh(x, dt, A, B_, C)`` launches the CUDA C++ kernel of
 ``kernels/csrc/ssd_scan.cu``, the port of the JAX package's Pallas
-``ssd_scan_bhl``. It reads the model layout (x [B, L, H, P], dt [B, L, H],
-A [H], B_/C [B, L, G, N]) where it lies and reads B_ and C by group, so
-nothing is transposed, repeated or padded first. The kernel runs its own
-64-step chunks. It takes CUDA tensors only and raises on what the kernel
+``ssd_scan_bhl``: three launches (chunk states, state passing, chunk
+outputs) over chunks of the kernel's own length (``ssd_scan_chunk()`` in
+the source), with the states' scratch allocated here. bf16 goes through
+``ssd_scan_wgmma`` (the chunk products on the tensor cores), float32
+through ``ssd_scan_fma`` (on the CUDA cores). It reads the model
+layout (x [B, L, H, P], dt [B, L, H], A [H], B_/C [B, L, G, N]) where it
+lies and reads B_ and C by group, so nothing is transposed, repeated or
+padded first. It takes CUDA tensors only and raises on what the kernel
 does not take; the plain version is ``ref.ssd_scan_reference``.
 """
 from __future__ import annotations
@@ -19,21 +23,25 @@ from repro_torch.kernels import build
 
 MAX_DIM = 128                   # P and N: csrc/ssd_scan.cu kMaxDim
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_GRID_Y = 65535
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = build.load("ssd_scan")
     fn = lib.ssd_scan_forward
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_int64] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] + [ctypes.c_int64] * 6 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.ssd_scan_chunk.argtypes = []
+    lib.ssd_scan_chunk.restype = ctypes.c_int
     lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
     lib.ssd_scan_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(x, dt, A, B_, C) -> None:
+def _check(x, dt, A, B_, C, dtype: torch.dtype) -> None:
+    """Raises unless the inputs are what the kernel of ``dtype`` takes."""
     if x.dim() != 4 or B_.dim() != 4 or B_.shape != C.shape:
         raise ValueError(f"need x [B, L, H, P] and B_, C [B, L, G, N], got "
                          f"{tuple(x.shape)}, {tuple(B_.shape)}, {tuple(C.shape)}")
@@ -49,40 +57,84 @@ def _check(x, dt, A, B_, C) -> None:
     if x.dtype not in _DTYPE_CODE or B_.dtype != x.dtype or C.dtype != x.dtype:
         raise ValueError(f"x, B_, C must all be float32 or all bfloat16, got "
                          f"{x.dtype}, {B_.dtype}, {C.dtype}")
+    if x.dtype != dtype:
+        raise ValueError(f"this kernel takes {dtype}, got {x.dtype}")
     if not (dt.is_floating_point() and A.is_floating_point()):
         raise ValueError("dt and A must be floating point")
-
-
-def ssd_scan_blh(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                 B_: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
-    """x [B,L,H,P]; dt [B,L,H]; A [H]; B_/C [B,L,G,N], CUDA tensors on one
-    device, x, B_, C contiguous and of one type (float32 or bfloat16),
-    P, N <= 128 → y [B,L,H,P] of x's type, without the D·x skip. dt and A
-    are widened to float32 here. Counted in ``ssd_scan_blh.launches``."""
-    _check(x, dt, A, B_, C)
+    if Bb * H > _MAX_GRID_Y:
+        raise ValueError(f"B * H = {Bb * H} is too many heads for one launch")
     tensors = (x, dt, A, B_, C)
     if any(t.device.type != "cuda" or t.device != x.device for t in tensors):
         raise ValueError("ssd_scan_blh's kernel takes CUDA tensors on one "
                          f"device, got {[str(t.device) for t in tensors]}")
     if not (x.is_contiguous() and B_.is_contiguous() and C.is_contiguous()):
         raise ValueError("ssd_scan_blh's kernel needs contiguous x, B_, C")
+
+
+def _launch(x, dt, A, B_, C) -> torch.Tensor:
     Bb, L, H, P = x.shape
     G, N = B_.shape[2], B_.shape[3]
     dt32 = dt.float().contiguous()
     A32 = A.float().contiguous()
     out = torch.empty_like(x)
     lib = _library()
+    n_chunks = -(-L // lib.ssd_scan_chunk())
+    states = torch.empty(Bb * H * n_chunks * N * P, dtype=torch.float32,
+                         device=x.device)
+    totals = torch.empty(Bb * H * n_chunks, dtype=torch.float32,
+                         device=x.device)
+    # bf16 takes the states entering each chunk as a bf16 copy; fp32
+    # overwrites the states with them in place
+    hin = states if x.dtype == torch.float32 else torch.empty(
+        states.shape, dtype=torch.bfloat16, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.ssd_scan_forward(
             x.data_ptr(), dt32.data_ptr(), A32.data_ptr(), B_.data_ptr(),
-            C.data_ptr(), out.data_ptr(), _DTYPE_CODE[x.dtype], Bb, L, H, G,
-            P, N, stream)
+            C.data_ptr(), out.data_ptr(), states.data_ptr(), hin.data_ptr(),
+            totals.data_ptr(), _DTYPE_CODE[x.dtype], Bb, L, H, G, P, N,
+            stream)
     if err:
         raise RuntimeError("ssd_scan kernel launch failed: "
                            f"{lib.ssd_scan_error_string(err).decode()}")
+    return out
+
+
+def ssd_scan_wgmma(x, dt, A, B_, C) -> torch.Tensor:
+    """The bf16 passes (chunk products by wgmma) on inputs as
+    ``ssd_scan_blh`` takes them, x, B_, C bf16. Counted in
+    ``ssd_scan_wgmma.launches``."""
+    _check(x, dt, A, B_, C, torch.bfloat16)
+    out = _launch(x, dt, A, B_, C)
+    ssd_scan_wgmma.launches += 1
+    return out
+
+
+def ssd_scan_fma(x, dt, A, B_, C) -> torch.Tensor:
+    """The float32 passes (CUDA-core FMA) on inputs as ``ssd_scan_blh``
+    takes them, x, B_, C float32. Counted in ``ssd_scan_fma.launches``."""
+    _check(x, dt, A, B_, C, torch.float32)
+    out = _launch(x, dt, A, B_, C)
+    ssd_scan_fma.launches += 1
+    return out
+
+
+def ssd_scan_blh(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 B_: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+    """x [B,L,H,P]; dt [B,L,H]; A [H]; B_/C [B,L,G,N], CUDA tensors on one
+    device, x, B_, C contiguous and of one type (float32 or bfloat16),
+    P, N <= 128 → y [B,L,H,P] of x's type, without the D·x skip: bf16
+    through ``ssd_scan_wgmma``, anything else through ``ssd_scan_fma``,
+    which raises unless it is float32. dt and A are widened to float32
+    here. The states between the passes take 4·B·H·ceil(L / chunk)·N·P
+    bytes of scratch (and half as much again in bf16). Counted in
+    ``ssd_scan_blh.launches`` as well as in the kernel's own counter."""
+    kernel = ssd_scan_wgmma if x.dtype == torch.bfloat16 else ssd_scan_fma
+    out = kernel(x, dt, A, B_, C)
     ssd_scan_blh.launches += 1
     return out
 
 
 ssd_scan_blh.launches = 0
+ssd_scan_wgmma.launches = 0
+ssd_scan_fma.launches = 0

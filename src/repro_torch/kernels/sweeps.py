@@ -22,8 +22,10 @@ WINDOW_TOL = {"float32": 1e-4, "bfloat16": 1e-1}
 SEGMENT_SUM_RTOL = {"float32": 1e-5, "bfloat16": 1e-1}
 
 # flash attention: (B, Sq, Skv, H, KV, d, causal, dtype), |err| <=
-# FLASH_TOL[dtype]. The last case is causal with Sq > Skv, so its first
-# rows see no key.
+# FLASH_TOL[dtype]. The eighth case is causal with Sq > Skv, so its first
+# rows see no key. The bf16 cases after it reach the edges of the bf16
+# kernel's tiling (128 queries by 128 keys, 64-byte swizzle at d = 32): a
+# ragged length, the smallest head dim, Sq > Skv.
 FLASH_SWEEP = ((2, 256, 256, 4, 2, 64, True, "float32"),
                (1, 200, 200, 4, 4, 64, True, "float32"),        # ragged
                (2, 128, 384, 8, 2, 128, False, "float32"),      # cross-ish
@@ -31,7 +33,10 @@ FLASH_SWEEP = ((2, 256, 256, 4, 2, 64, True, "float32"),
                (1, 384, 384, 3, 3, 64, True, "float32"),        # odd heads
                (2, 256, 256, 4, 2, 64, True, "bfloat16"),
                (1, 128, 256, 8, 8, 128, True, "bfloat16"),
-               (1, 256, 128, 2, 1, 64, True, "float32"))
+               (1, 256, 128, 2, 1, 64, True, "float32"),
+               (1, 256, 256, 2, 1, 32, True, "bfloat16"),       # d = 32
+               (1, 200, 200, 4, 2, 64, True, "bfloat16"),       # ragged
+               (1, 256, 128, 2, 1, 64, True, "bfloat16"))       # Sq > Skv
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 # SSD scan: (B, L, H, P, G, N, chunk, dtype), |err| <= SSD_RTOL[dtype] ·
@@ -40,7 +45,8 @@ SSD_SWEEP = ((2, 256, 4, 64, 1, 128, 128, "float32"),
              (1, 512, 2, 32, 1, 64, 128, "float32"),
              (2, 200, 4, 16, 2, 32, 64, "float32"),             # pad + groups
              (1, 128, 8, 64, 1, 128, 32, "float32"),
-             (1, 256, 4, 64, 1, 128, 128, "bfloat16"))
+             (1, 256, 4, 64, 1, 128, 128, "bfloat16"),
+             (2, 200, 4, 16, 2, 32, 64, "bfloat16"))            # pad + groups
 SSD_RTOL = {"float32": 1e-4, "bfloat16": 1e-1}
 
 # Full width, 4,096 positions (the train_4k shape). In bf16 the sweeps'

@@ -9,6 +9,12 @@ JAX package's canonical shapes, and
 per ingested record. Each entry point is a custom op with its own FLOP
 formula (``kernels/<name>/ops.py``), so the count is the function's work
 whatever runs inside it, and it is the same on the CPU and on the card.
+Each operator is dry-run in float32 and in bfloat16, the two types its
+kernels take, since on the card each type has a kernel of its own (wgmma
+for bf16, CUDA-core FMA for float32). The bf16 pass is there so that the
+calibration path launches every kernel, until the port's language-model
+stack runs bf16 attention; the FLOP formulas depend only on shapes, so it
+cannot change the count, and the float32 pass's count is the one kept.
 That number feeds the roofline cost cells
 (:func:`repro_torch.scenario.engine.analytics_cost_model`) the DC
 simulator prices VDC steps with.
@@ -40,6 +46,10 @@ from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.kernels.window_agg.ops import window_aggregate
 from repro_torch.scenario.profiles import ServiceProfile
 
+# every dry-run runs once in each type the kernels take; the count is the
+# first's
+DRY_RUN_DTYPES = (torch.float32, torch.bfloat16)
+
 _INTENSITY = {          # analytic flops/record fallbacks, by operator
     # one VPU op per element in the segment phase + m-way combine
     "window_agg": lambda m: 1.0 + 1.0 / 64.0 * m,
@@ -68,8 +78,8 @@ class KernelCalibrator:
     Callable with a service spec (anything with ``operator``, ``agg``,
     ``width_s`` and ``slide_s``), so it can be handed to whatever compiles
     services into profiles. The dry-runs run on ``device``: the card
-    unless the caller passes ``device="cpu"``. A kernel that cannot run
-    the shape raises."""
+    unless the caller passes ``device="cpu"``, once in each of
+    ``DRY_RUN_DTYPES``. A kernel that cannot run the shape raises."""
 
     def __init__(self, stride: int = 64, device: DeviceLike = None):
         self.stride = stride
@@ -101,11 +111,14 @@ class KernelCalibrator:
     # ------------------------------------------------------------ dry-runs
     def _measure(self, operator: str, agg: str, m: int) -> Calibration:
         fn = getattr(self, f"_dry_{operator}")
-        with FlopCounterMode(display=False) as counter:
-            n_records = fn(agg, m)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)   # a fault in the run raises
-        flops = counter.get_total_flops()
+        counts = []
+        for dtype in DRY_RUN_DTYPES:
+            with FlopCounterMode(display=False) as counter:
+                n_records = fn(agg, m, dtype)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)   # a fault raises here
+            counts.append(counter.get_total_flops())
+        flops = counts[0]
         if not flops:
             fpr = _INTENSITY[operator](m)
             return Calibration(operator, agg, m, n_records,
@@ -116,28 +129,30 @@ class KernelCalibrator:
                            flops_per_record=flops / n_records,
                            source="flop-counter")
 
-    def _ones(self, *shape) -> torch.Tensor:
-        return torch.ones(shape, dtype=torch.float32, device=self.device)
+    def _ones(self, *shape, dtype=torch.float32) -> torch.Tensor:
+        return torch.ones(shape, dtype=dtype, device=self.device)
 
-    def _dry_window_agg(self, agg: str, m: int) -> int:
+    def _dry_window_agg(self, agg: str, m: int, dtype: torch.dtype) -> int:
         stride = self.stride
         window = m * stride
         T = 4 * window
-        window_aggregate(self._ones(T, 1), agg=agg, window=window,
-                         stride=stride)
+        window_aggregate(self._ones(T, 1, dtype=dtype), agg=agg,
+                         window=window, stride=stride)
         return T
 
-    def _dry_ssd_scan(self, agg: str, m: int) -> int:
+    def _dry_ssd_scan(self, agg: str, m: int, dtype: torch.dtype) -> int:
         B, L, H, P, G, N = 1, 128, 2, 64, 1, 16
-        ssd_scan(self._ones(B, L, H, P), self._ones(B, L, H) * 0.1,
-                 -self._ones(H), self._ones(B, L, G, N), self._ones(B, L, G, N),
-                 chunk=64)
+        ssd_scan(self._ones(B, L, H, P, dtype=dtype),     # dt and A stay f32
+                 self._ones(B, L, H) * 0.1, -self._ones(H),
+                 self._ones(B, L, G, N, dtype=dtype),
+                 self._ones(B, L, G, N, dtype=dtype), chunk=64)
         return B * L
 
-    def _dry_flash_attention(self, agg: str, m: int) -> int:
+    def _dry_flash_attention(self, agg: str, m: int,
+                             dtype: torch.dtype) -> int:
         B, S, H, d = 1, 256, 2, 64
-        q = self._ones(B, S, H, d)
-        k = self._ones(B, S, H, d)
+        q = self._ones(B, S, H, d, dtype=dtype)
+        k = self._ones(B, S, H, d, dtype=dtype)
         flash_attention(q, k, k)
         return B * S
 

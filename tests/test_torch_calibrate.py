@@ -28,6 +28,7 @@ from repro_torch.core import tasks as port_tasks
 from repro_torch.scenario import (HintedVPTR, KernelCalibrator,
                                   ServiceProfile, ServiceSLO,
                                   analytics_cost_model, calibrate_profiles)
+from repro_torch.scenario import calibrate as port_cal_mod
 from repro_torch.scenario.engine import _fresh_heuristic
 
 torch.set_num_threads(2)
@@ -62,6 +63,25 @@ def test_calibrator_measures_and_caches(port_cal):
         "window_agg", agg="sum", m=2)
     with pytest.raises(ValueError, match="unknown operator"):
         cal.measure("not_a_kernel")
+
+
+@pytest.mark.parametrize("op,entry", [("window_agg", "window_aggregate"),
+                                      ("ssd_scan", "ssd_scan"),
+                                      ("flash_attention", "flash_attention")])
+def test_calibrator_dry_runs_each_type_the_kernels_take(monkeypatch, op,
+                                                        entry):
+    """One dry-run in float32 and one in bfloat16 (on the card, flash
+    attention's two kernels), counted once."""
+    seen, real = [], getattr(port_cal_mod, entry)
+
+    def spy(x, *args, **kwargs):
+        seen.append(x.dtype)
+        return real(x, *args, **kwargs)
+
+    monkeypatch.setattr(port_cal_mod, entry, spy)
+    cal = KernelCalibrator(device="cpu").measure(op, agg="max", m=2)
+    assert seen == list(port_cal_mod.DRY_RUN_DTYPES)
+    assert cal == KernelCalibrator(device="cpu").measure(op, agg="max", m=2)
 
 
 def test_calibrator_defaults_to_the_card():

@@ -13,9 +13,12 @@ import torch
 
 from repro_torch.kernels.flash_attention import (attention_reference,
                                                  flash_attention)
-from repro_torch.kernels.flash_attention.kernel import flash_attention_bshd
+from repro_torch.kernels.flash_attention.kernel import (flash_attention_bshd,
+                                                        flash_attention_fma,
+                                                        flash_attention_wgmma)
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_reference
-from repro_torch.kernels.ssd_scan.kernel import ssd_scan_blh
+from repro_torch.kernels.ssd_scan.kernel import (ssd_scan_blh, ssd_scan_fma,
+                                                 ssd_scan_wgmma)
 from repro_torch.kernels.sweeps import (FLASH_SWEEP, FLASH_TOL,
                                         FULL_FLASH_BF16_ROW_RTOL,
                                         FULL_SSD_RTOL, SEGMENT_SUM_RTOL,
@@ -29,7 +32,6 @@ from repro_torch.pipeline import HybridExecutor
 from repro_torch.scenario import KernelCalibrator
 
 torch.set_num_threads(2)
-
 
 
 @pytest.fixture
@@ -66,21 +68,33 @@ def test_kernel_matches_plain(cuda, T, C, w, s, agg, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("agg", ["max", "min", "sum", "mean"])
-def test_window_at_the_calibrators_shape(cuda, agg):
+def test_window_at_the_calibrators_shape(cuda, agg, dtype):
     """The calibrator's dry-run (scenario/calibrate.py at stride 64, m = 3):
-    [768, 1] f32, window 192, on its ones and on seeded values."""
+    [768, 1] in each type it runs, window 192, on its ones and on seeded
+    values; bf16 sums of seeded values within SEGMENT_SUM_RTOL · Σ|x|,
+    since bf16 rounds each segment's sum before the combine."""
     g = torch.Generator(device=cuda).manual_seed(1)
-    for x in (torch.ones(768, 1, device=cuda),
-              torch.randn(768, 1, device=cuda, generator=g) * 10):
+    dt = getattr(torch, dtype)
+    for seeded, x in ((False, torch.ones(768, 1, device=cuda)),
+                      (True, torch.randn(768, 1, device=cuda, generator=g)
+                       * 10)):
+        x = x.to(dt)
         out = window_aggregate(x, agg=agg, window=192, stride=64)
         ref = window_aggregate_reference(x, agg=agg, window=192, stride=64)
-        assert out.shape == ref.shape == (10, 1)
+        assert out.shape == ref.shape == (10, 1) and out.dtype == dt
         if agg in ("max", "min"):
             assert torch.equal(out, ref)
+        elif dtype == "float32" or not seeded:
+            tol = WINDOW_TOL[dtype]
+            torch.testing.assert_close(out.float(), ref.float(), atol=tol,
+                                       rtol=tol)
         else:
-            tol = WINDOW_TOL["float32"]
-            torch.testing.assert_close(out, ref, atol=tol, rtol=tol)
+            scale = window_aggregate_reference(x.abs(), agg=agg, window=192,
+                                               stride=64).float()
+            err = (out.float() - ref.float()).abs()
+            assert bool((err <= SEGMENT_SUM_RTOL[dtype] * scale).all())
 
 
 @pytest.mark.gpu
@@ -155,6 +169,35 @@ def test_flash_kernel_matches_plain(cuda, B, Sq, Skv, H, KV, d, causal, dtype,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype,kernel", [("bfloat16", "wgmma"),
+                                          ("float32", "fma")])
+def test_flash_dtype_picks_its_kernel(cuda, dtype, kernel):
+    """bf16 launches the wgmma + TMA kernel, float32 the CUDA-core one,
+    each counted once, and flash_attention_bshd counts both."""
+    q = torch.randn(1, 128, 2, 64, device=cuda).to(getattr(torch, dtype))
+    counters = {"wgmma": flash_attention_wgmma, "fma": flash_attention_fma}
+    before = {n: c.launches for n, c in counters.items()}
+    total = flash_attention_bshd.launches
+    flash_attention(q, q, q)
+    went = {n: c.launches - before[n] for n, c in counters.items()}
+    assert went == {n: int(n == kernel) for n in counters}
+    assert flash_attention_bshd.launches == total + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_at_the_calibrators_shape(cuda, dtype):
+    """The calibrator's dry-run (scenario/calibrate.py): q = k = v = ones
+    [1, 256, 2, 64], causal, in each type it runs."""
+    ones = torch.ones(1, 256, 2, 64, device=cuda, dtype=getattr(torch, dtype))
+    out = flash_attention(ones, ones, ones)
+    ref = attention_reference(ones, ones, ones)
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    torch.testing.assert_close(out.float(), ref.float(),
+                               atol=FLASH_TOL[dtype], rtol=0)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("B,L,H,P,G,N,chunk,dtype,rtol", SSD_CASES)
 def test_ssd_kernel_matches_plain(cuda, B, L, H, P, G, N, chunk, dtype, rtol):
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -175,6 +218,63 @@ def test_ssd_kernel_matches_plain(cuda, B, L, H, P, G, N, chunk, dtype, rtol):
     assert float((y.float() - ref.float()).abs().max()) <= rtol * scale
     assert torch.equal(_bits(y), _bits(ssd_scan(x, dtt, A, Bm, Cm,
                                                 chunk=chunk)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,kernel", [("bfloat16", "wgmma"),
+                                          ("float32", "fma")])
+def test_ssd_dtype_picks_its_kernel(cuda, dtype, kernel):
+    """bf16 launches the wgmma passes, float32 the CUDA-core ones, each
+    counted once, and ssd_scan_blh counts both."""
+    dt = getattr(torch, dtype)
+    x = torch.randn(1, 64, 2, 16, device=cuda).to(dt)
+    dtt, A = torch.rand(1, 64, 2, device=cuda), -torch.ones(2, device=cuda)
+    Bm = torch.randn(1, 64, 1, 16, device=cuda).to(dt)
+    counters = {"wgmma": ssd_scan_wgmma, "fma": ssd_scan_fma}
+    before = {n: c.launches for n, c in counters.items()}
+    total = ssd_scan_blh.launches
+    ssd_scan(x, dtt, A, Bm, Bm)
+    went = {n: c.launches - before[n] for n, c in counters.items()}
+    assert went == {n: int(n == kernel) for n in counters}
+    assert ssd_scan_blh.launches == total + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_at_the_calibrators_shape(cuda, dtype):
+    """The calibrator's dry-run (scenario/calibrate.py): B 1, L 128, H 2,
+    P 64, G 1, N 16 of ones, dt 0.1, A -1, in each type it runs."""
+    dt = getattr(torch, dtype)
+    x = torch.ones(1, 128, 2, 64, device=cuda, dtype=dt)
+    Bm = torch.ones(1, 128, 1, 16, device=cuda, dtype=dt)
+    dtt = torch.ones(1, 128, 2, device=cuda) * 0.1
+    A = -torch.ones(2, device=cuda)
+    y = ssd_scan(x, dtt, A, Bm, Bm, chunk=64)
+    ref = ssd_scan_reference(x, dtt, A, Bm, Bm)
+    assert y.shape == ref.shape and y.dtype == dt
+    scale = float(ref.float().abs().max())
+    assert float((y.float() - ref.float()).abs().max()) <= (SSD_RTOL[dtype]
+                                                            * scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_ssd_kernel_takes_unaligned_widths(cuda, dtype):
+    """P = 7, N = 9 and a ragged L: rows too narrow for 16-byte copies go
+    through the kernel's plain loads, with the sweep's limit."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    dt = getattr(torch, dtype)
+    x = torch.randn(1, 100, 3, 7, device=cuda, generator=g).to(dt)
+    dtt = torch.nn.functional.softplus(torch.randn(1, 100, 3, device=cuda,
+                                                   generator=g))
+    A = -torch.exp(torch.randn(3, device=cuda, generator=g) * 0.5)
+    Bm = (torch.randn(1, 100, 1, 9, device=cuda, generator=g) * 0.3).to(dt)
+    Cm = (torch.randn(1, 100, 1, 9, device=cuda, generator=g) * 0.3).to(dt)
+    y = ssd_scan(x, dtt, A, Bm, Cm)
+    ref = ssd_scan_reference(x, dtt, A, Bm, Cm)
+    assert y.shape == ref.shape and y.dtype == dt
+    scale = float(ref.float().abs().max())
+    assert float((y.float() - ref.float()).abs().max()) <= SSD_RTOL[dtype] * scale
 
 
 @pytest.mark.gpu
@@ -233,14 +333,18 @@ def test_new_kernels_reject_what_they_do_not_take(cuda):
 
 @pytest.mark.gpu
 def test_calibration_on_the_card_equals_the_cpu(cuda):
-    """The calibrator on the card launches every kernel of its operators
-    and counts the same FLOPs as on the CPU."""
+    """The calibrator on the card launches every kernel of its operators,
+    once in float32 and once in bfloat16, and counts the same FLOPs as on
+    the CPU."""
     gpu, cpu = KernelCalibrator(), KernelCalibrator(device="cpu")
     assert gpu.device == cuda
-    counters = (segment_reduce, flash_attention_bshd, ssd_scan_blh)
+    counters = (segment_reduce, flash_attention_bshd, flash_attention_wgmma,
+                flash_attention_fma, ssd_scan_blh, ssd_scan_wgmma,
+                ssd_scan_fma)
     before = [c.launches for c in counters]
     for op, agg, m in (("window_agg", "max", 3), ("ssd_scan", "max", 2),
                        ("flash_attention", "max", 2)):
         a, b = gpu.measure(op, agg=agg, m=m), cpu.measure(op, agg=agg, m=m)
         assert a == b and a.source == "flop-counter"
-    assert [c.launches - n for c, n in zip(counters, before)] == [1, 1, 1]
+    assert ([c.launches - n for c, n in zip(counters, before)]
+            == [2, 2, 1, 1, 2, 1, 1])
