@@ -9,14 +9,21 @@ source, all started together), then runs these phases, each printing one
 JSON line; any failure exits non-zero:
 
   card    nvidia-smi's name and power limit (also printed raw), torch's name
-  build   the kernels' build, timed as set-up
+  build   the kernels' build, timed as set-up, with ptxas's registers,
+          shared memory and spills of every kernel; the window_agg and
+          fp32 flash kernels must not spill
   kernel  every kernel against its plain torch version on the card, at the
           test sweeps' shapes, the main paths' shapes (the calibrator's
           dry-runs among them) and full width
           (qwen3-1.7b attention and mamba2-1.3b SSD at 4,096 positions),
-          plus a NaN case and a bitwise rerun check; flash attention and
-          the SSD each have two kernels, wgmma for bf16 and CUDA-core FMA
-          for fp32, and each call must launch the one of its type
+          plus NaN cases and a bitwise rerun check; window_agg in both of
+          its load widths (16-byte loads where every row is 16-byte
+          aligned, one element per load else: C = 1, 3, 5, 130, the
+          calibrator's [768, 1], views whose pointer is off 16 bytes),
+          each call counted in its width's counter; flash attention has
+          two kernels, wgmma in bf16 and 3xTF32 on wgmma in fp32, the
+          SSD wgmma in bf16 and CUDA-core FMA in fp32, and each call must
+          launch the one of its type
   main    the paper's §3 use case through the port's entry points: a Neubot
           farm of 8 things at 1 Hz → broker → Q1 and Q2 stream services
           (fetch → bounded buffer → spill to the store) for one simulated
@@ -25,6 +32,11 @@ JSON line; any failure exits non-zero:
           checked against float64 numpy; the kernel's launch counter shows
           that the offloads ran it; then the analytics operators on the card
           against the same operators on the CPU
+  fleet   Q1 (MAX over 180 s every 60 s) for a fleet of 1,024 things over
+          a day, [86,400, 1,024] in float32 and in bfloat16, through
+          ``window_aggregate``, bit-equal to its plain version; the
+          counters, set to 0 before each type, show one 16-byte-load
+          launch of the kernel each
   calibrate  the JITA-4DS path: ``KernelCalibrator()`` measures the flops
           per record of three services (window_agg, ssd_scan,
           flash_attention) from dry-runs of their kernels on the card, in
@@ -38,11 +50,22 @@ JSON line; any failure exits non-zero:
           VoS must equal the JAX package's, recorded below
   times   kernel, plain version and one library call by CUDA events at the
           main path's shape, the fleet shape and full width, beside the
-          bound (at full width the kernel and the library call as the
-          median of 5 batches of 20 launches after 5 warm-ups, with the
-          batches' spread, and each kernel's device time from
-          torch.profiler, the SSD's three passes apart); the host-to-device
+          bound; the kernel and the library call as the median of 5
+          batches of 20 launches after 5 warm-ups, with the batches'
+          spread; at full width each kernel's device time from
+          torch.profiler (the SSD's three passes apart); the host-to-device
           copy and ``run_window`` end to end; peak memory
+
+The bound is the larger of the bytes (each input read once, each output
+written once) over 3.35 TB/s and the operations over the card's peak for
+their type: 989 TFLOP/s for bf16 on the tensor cores, and for fp32 the
+lesser of the CUDA cores' 67 TFLOP/s and three TF32 products at
+495 TFLOP/s (3xTF32, which holds fp32 accuracy on the tensor cores).
+``bound_by`` says which: ``bytes``, ``operations_bf16``,
+``operations_fma`` or ``operations_3xtf32``; the ``times`` lines keep the
+fp32 CUDA-core figure beside it as ``bound_fma_ms``. The ``kernels`` line
+gives ``bound_by`` as ``bytes`` or ``operations`` and the finer word as
+``bound_detail``.
 
 Then one line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
 {...}}``. With no CUDA card it exits non-zero before printing any result.
@@ -67,6 +90,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
+TF32_OPS_PER_S = 495e12     # H100 SXM tf32 tensor cores, dense
 BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 SEED = 0
 N_THINGS, RATE_HZ, HOURS = 8, 1.0, 1.0
@@ -104,6 +128,29 @@ def bits(t):
     return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
 
 
+def bound(nbytes, flops, dtype) -> dict:
+    """The least time the card could take to move ``nbytes`` and do
+    ``flops`` in ``dtype`` (see the module's docstring), in ms, what bounds
+    it, and for fp32 the operations' time on the CUDA cores."""
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    if dtype == "bfloat16":
+        t_o, by, fma = flops / BF16_OPS_PER_S * 1e3, "operations_bf16", None
+    else:
+        fma = flops / FP32_OPS_PER_S * 1e3
+        tf32 = 3 * flops / TF32_OPS_PER_S * 1e3
+        t_o, by = ((fma, "operations_fma") if fma <= tf32
+                   else (tf32, "operations_3xtf32"))
+    return {"bound_ms": max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o
+            else by, "bound_fma_ms": fma}
+
+
+def batches(cuda_ms, fn, key) -> dict:
+    """{key: median ms, key_batches: the 5 batch means, key_spread: max -
+    min of them}: 5 batches of 20 launches after 5 warm-ups."""
+    ms = sorted(cuda_ms(fn, 20, 5 if i == 0 else 0) for i in range(5))
+    return {key: ms[2], f"{key}_batches": ms, f"{key}_spread": ms[-1] - ms[0]}
+
+
 def flash_inputs(dev, gen, B, Sq, Skv, H, KV, d, dtype):
     import torch
     dt = getattr(torch, dtype)
@@ -133,7 +180,7 @@ def check_attention_and_ssd(dev, gen) -> dict:
     from repro_torch.kernels.flash_attention import (attention_reference,
                                                      flash_attention)
     from repro_torch.kernels.flash_attention.kernel import (
-        flash_attention_fma, flash_attention_wgmma)
+        flash_attention_3xtf32, flash_attention_wgmma)
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_reference
     from repro_torch.kernels.ssd_scan.kernel import ssd_scan_fma, ssd_scan_wgmma
     from repro_torch.kernels.sweeps import (FLASH_SWEEP, FLASH_TOL,
@@ -178,12 +225,13 @@ def check_attention_and_ssd(dev, gen) -> dict:
         name = f"flash[{B},{Sq},{Skv},{H},{KV},{d}] causal={causal} {dt}"
         at_full = (B, Sq, Skv, H, KV, d, causal) == flash_full
         row = at_full and dt == "bfloat16"
-        before = (flash_attention_wgmma.launches, flash_attention_fma.launches)
+        before = (flash_attention_wgmma.launches,
+                  flash_attention_3xtf32.launches)
         out = flash_attention(q, k, v, causal=causal)
         went = (flash_attention_wgmma.launches - before[0],
-                flash_attention_fma.launches - before[1])
+                flash_attention_3xtf32.launches - before[1])
         require(went == ((1, 0) if dt == "bfloat16" else (0, 1)),
-                f"{name}: (wgmma, fma) launches {went}")
+                f"{name}: (wgmma, 3xtf32) launches {went}")
         err = check(name, out, flash_attention(q, k, v, causal=causal),
                     attention_reference(q, k, v, causal=causal),
                     FULL_FLASH_BF16_ROW_RTOL if row else FLASH_TOL[dt],
@@ -278,7 +326,7 @@ def calibration_path() -> dict:
     launches of each kernel in this run."""
     from repro_torch.core.simulator import Simulator
     from repro_torch.kernels.flash_attention.kernel import (
-        flash_attention_bshd, flash_attention_fma, flash_attention_wgmma)
+        flash_attention_3xtf32, flash_attention_bshd, flash_attention_wgmma)
     from repro_torch.kernels.ssd_scan.kernel import (ssd_scan_blh, ssd_scan_fma,
                                                      ssd_scan_wgmma)
     from repro_torch.kernels.window_agg.kernel import segment_reduce
@@ -287,11 +335,12 @@ def calibration_path() -> dict:
 
     counters = {"window_agg": segment_reduce, "flash_attention":
                 flash_attention_bshd, "flash_attention_wgmma":
-                flash_attention_wgmma, "flash_attention_fma":
-                flash_attention_fma, "ssd_scan": ssd_scan_blh,
+                flash_attention_wgmma, "flash_attention_3xtf32":
+                flash_attention_3xtf32, "ssd_scan": ssd_scan_blh,
                 "ssd_scan_wgmma": ssd_scan_wgmma, "ssd_scan_fma": ssd_scan_fma}
     for c in counters.values():
         c.launches = 0
+    segment_reduce.scalar_launches = segment_reduce.vector_launches = 0
     t0 = time.perf_counter()
     services = calibrated_services()
     profiles, cal = calibrate_profiles(SimpleNamespace(services=services),
@@ -300,6 +349,10 @@ def calibration_path() -> dict:
     res = Simulator(HintedVPTR(), cost).run(fire_tasks(profiles, cost))
     wall = time.perf_counter() - t0
     launches = {k: c.launches for k, c in counters.items()}
+    # the dry-run's [768, 1] takes one element per load
+    launches["window_agg_scalar"] = segment_reduce.scalar_launches
+    require(segment_reduce.vector_launches == 0,
+            f"the dry-run's [768, 1] took 16-byte loads: {launches}")
 
     require(all(n > 0 for n in launches.values()),
             f"a kernel of the calibration path never launched: {launches}")
@@ -389,18 +442,6 @@ def time_attention_and_ssd(dev, gen, cuda_ms, smi0) -> dict:
     from repro_torch.kernels.ssd_scan.ops import ssd_scan_flops
     from repro_torch.kernels.sweeps import full_widths
 
-    def bound(nbytes, flops, dt):
-        peak = BF16_OPS_PER_S if dt == "bfloat16" else FP32_OPS_PER_S
-        t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
-        return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
-
-    def batches(fn, key):
-        """{key: median ms, key_batches: the 5 batch means, key_spread:
-        max - min of them}"""
-        ms = sorted(cuda_ms(fn, 20, 5 if i == 0 else 0) for i in range(5))
-        return {key: ms[2], f"{key}_batches": ms, f"{key}_spread":
-                ms[-1] - ms[0]}
-
     flash_full, ssd_full = full_widths()
     timed = {}
     for dt in ("bfloat16", "float32"):
@@ -408,18 +449,16 @@ def time_attention_and_ssd(dev, gen, cuda_ms, smi0) -> dict:
         q, k, v = flash_inputs(dev, gen, B, Sq, Skv, H, KV, d, dt)
         nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
         flops = flash_attention_flops(q.shape, k.shape, causal)
-        b_ms, b_by = bound(nbytes, flops, dt)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        t = {**batches(lambda: flash_attention_bshd(q, k, v, causal=causal),
-                       "ms"),
+        t = {**batches(cuda_ms, lambda: flash_attention_bshd(
+                 q, k, v, causal=causal), "ms"),
              "plain_ms": cuda_ms(lambda: attention_reference(
                  q, k, v, causal=causal), 5, 1),
              # SDPA's is_causal is top-left aligned: the same mask at Sq = Skv
-             **batches(lambda: F.scaled_dot_product_attention(
+             **batches(cuda_ms, lambda: F.scaled_dot_product_attention(
                  qt, kt, vt, is_causal=True, enable_gqa=True), "library_ms"),
-             "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
-             "bytes": nbytes,
-             "kernel": "wgmma" if dt == "bfloat16" else "fma",
+             **bound(nbytes, flops, dt), "flops": flops, "bytes": nbytes,
+             "kernel": "wgmma" if dt == "bfloat16" else "3xtf32",
              "device_ms_by_kernel": kernel_device_ms(
                  lambda: flash_attention_bshd(q, k, v, causal=causal))}
         timed[("flash", dt)] = t
@@ -439,11 +478,11 @@ def time_attention_and_ssd(dev, gen, cuda_ms, smi0) -> dict:
         # per step and head (the decay's multiply left out). The chunked
         # form that the calibrator counts (ssd_scan_flops) does more.
         flops = 4 * N * P * B * L * H
-        b_ms, b_by = bound(nbytes, flops, dt)
-        t = {**batches(lambda: ssd_scan_blh(x, dtt, A, Bm, Cm), "ms"),
+        t = {**batches(cuda_ms, lambda: ssd_scan_blh(x, dtt, A, Bm, Cm),
+                       "ms"),
              "plain_ms": cuda_ms(lambda: ssd_scan_reference(
                  x, dtt, A, Bm, Cm), 2, 1),
-             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": None, **bound(nbytes, flops, dt),
              "flops": flops, "bytes": nbytes,
              "calibrator_flops": ssd_scan_flops(x.shape, Bm.shape, chunk),
              "device_ms_by_kernel": kernel_device_ms(
@@ -468,7 +507,8 @@ def main() -> None:
                                             WINDOW_TOL)
     from repro_torch.kernels.window_agg import (window_aggregate,
                                                 window_aggregate_reference)
-    from repro_torch.kernels.window_agg.kernel import (segment_reduce,
+    from repro_torch.kernels.window_agg.kernel import (launch_plan,
+                                                       segment_reduce,
                                                        segment_reduce_plain)
     from repro_torch.pipeline import (Broker, HybridExecutor, NeubotFarm,
                                       Pipeline, TimeSeriesStore,
@@ -492,15 +532,33 @@ def main() -> None:
     # ---- build ----------------------------------------------------------------
     t0 = time.perf_counter()
     libs = build.build(build.SOURCES)
+    ptxas = {n: build.ptxas_usage(n) for n in build.SOURCES}
     emit("build", seconds=time.perf_counter() - t0,
-         libraries=[str(p.relative_to(ROOT)) for p in libs.values()])
+         libraries=[str(p.relative_to(ROOT)) for p in libs.values()],
+         ptxas=ptxas)
+    spills = {k: u for n in ("window_agg", "flash_attention_sm90_f32")
+              for k, u in ptxas[n].items()
+              if u["spill_stores"] or u["spill_loads"]}
+    require(not spills, f"kernels that spill registers: {spills}")
 
     # ---- kernel vs plain --------------------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
     def check_segment(x, stride, agg, name):
-        """The kernel against the plain version on x; returns max |err|."""
+        """The kernel against the plain version on x, in the load width
+        that launch_plan gives x; returns max |err|."""
+        plan = launch_plan(*x.shape, stride, x.element_size(),
+                           x.data_ptr() % 16 == 0, sms)
+        width = "vector" if plan.vec > 1 else "scalar"
+        before = (segment_reduce.vector_launches,
+                  segment_reduce.scalar_launches)
         k = segment_reduce(x, agg=agg, stride=stride)
+        went = (segment_reduce.vector_launches - before[0],
+                segment_reduce.scalar_launches - before[1])
+        require(went == ((1, 0) if width == "vector" else (0, 1)),
+                f"{name}: (vector, scalar) launches {went}, plan {plan}")
         k2 = segment_reduce(x, agg=agg, stride=stride)
         p = segment_reduce_plain(x, agg=agg, stride=stride)
         torch.cuda.synchronize()
@@ -526,7 +584,7 @@ def main() -> None:
             rel = float((err / scale).max()) if err.numel() else 0.0
         e = float(err.max()) if err.numel() else 0.0
         emit("kernel", case=name, max_abs_err=e, max_err_over_sum_abs=rel,
-             tolerance=tol)
+             tolerance=tol, width=width, plan=plan._asdict())
         return e
 
     for T, C, w, s, agg, dt in WINDOW_SWEEP:
@@ -573,10 +631,24 @@ def main() -> None:
                            <= SEGMENT_SUM_RTOL[dt] * scale).all())
             require(ok, what)
 
-    xn = torch.randn(1000, 4, device=dev, generator=gen)
-    xn[5, 1] = float("nan")
-    for a in ("max", "min", "sum"):
-        check_segment(xn, 100, a, f"nan[1000,4]/100 {a}")
+    # NaN in each width, and through a split's partials
+    for T, C, s in ((1000, 4, 100), (1000, 5, 100), (64_000, 128, 16_000)):
+        xn = torch.randn(T, C, device=dev, generator=gen)
+        xn[5, 1] = float("nan")
+        for a in ("max", "min", "sum"):
+            check_segment(xn, s, a, f"nan[{T},{C}]/{s} {a}")
+    # views whose pointer is off 16 bytes take one element per load: x[1:]
+    # of a contiguous [T, 5] (20 bytes off), in many segments and in one
+    # split segment, and [T, 128] rows 4 bytes off
+    for T, C, s in ((100_000, 5, 100), (100_000, 5, 100_000),
+                    (100_001, 128, 100_001)):
+        off = 5 if C == 5 else 1
+        flat = torch.randn(T * C + off, device=dev, generator=gen) * 10
+        x = flat[off:].view(T, C)
+        require(x.data_ptr() % 16 != 0, f"[{T},{C}] view is aligned")
+        for a in ("max", "min", "sum"):
+            check_segment(x, s, a, f"misaligned[{T},{C}]+{off}/{s} {a}")
+    del flat, x
 
     def neubot_speeds(n, g):
         """n download speeds in bit/s, shaped like the producers' records."""
@@ -592,17 +664,17 @@ def main() -> None:
         return {"q2_fold": (neubot_speeds(Q2_RECORDS, gen).view(-1, 128),
                             Q2_RECORDS // 128), **fleet}
 
-    fold_err = 0.0
+    shape_err = {}
     for name, (x, stride) in main_shapes().items():
         for a in ("max", "min", "sum"):
             e = check_segment(x, stride, a, f"{name}{list(x.shape)}/{stride} {a}")
-            if name == "q2_fold":
-                fold_err = max(fold_err, e)
+            shape_err[name] = max(shape_err.get(name, 0.0), e)
     del x
     full_err = check_attention_and_ssd(dev, gen)
 
     # ---- main path ---------------------------------------------------------------
     segment_reduce.launches = 0
+    segment_reduce.vector_launches = segment_reduce.scalar_launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
 
     broker = Broker()
@@ -675,6 +747,8 @@ def main() -> None:
     n_off = sum(n > hx.edge_budget for n in Q2_WINDOWS) * 2 + 1
     n_edge = 1 + sum(n <= hx.edge_budget for n in Q2_WINDOWS) * 2
     launches = segment_reduce.launches
+    widths = {"vector": segment_reduce.vector_launches,
+              "scalar": segment_reduce.scalar_launches}
     require(hx.offloads == n_off and hx.edge_runs == n_edge,
             f"offloads {hx.offloads} (want {n_off}), edge runs "
             f"{hx.edge_runs} (want {n_edge})")
@@ -684,7 +758,32 @@ def main() -> None:
          buffer_evictions=[q1.buffer_evictions, q2.buffer_evictions],
          edge_runs=hx.edge_runs,
          offloads=hx.offloads, segment_reduce_launches=launches,
+         segment_reduce_launches_by_width=widths,
          max_memory_allocated=peak, windows=runs)
+
+    # ---- the fleet path: Q1 for 1,024 things over a day, in each type ------------
+    T, C, w, s = FLEET
+    g_fleet = torch.Generator(device=dev).manual_seed(SEED + 2)
+    fleet_launches = {}
+    for dt in dtypes:
+        x = neubot_speeds(T * C, g_fleet).view(T, C).to(dtypes[dt])
+        segment_reduce.launches = 0
+        segment_reduce.vector_launches = segment_reduce.scalar_launches = 0
+        out = window_aggregate(x, agg="max", window=w, stride=s)
+        torch.cuda.synchronize()
+        went = {"launches": segment_reduce.launches,
+                "vector": segment_reduce.vector_launches,
+                "scalar": segment_reduce.scalar_launches}
+        ref = window_aggregate_reference(x, agg="max", window=w, stride=s)
+        require(out.shape == ref.shape == ((T - w) // s + 1, C)
+                and torch.equal(bits(out), bits(ref)),
+                f"fleet Q1 {dt}: not bit-equal to the plain version")
+        require(went == {"launches": 1, "vector": 1, "scalar": 0},
+                f"fleet Q1 {dt}: launches {went}")
+        fleet_launches[dt] = went["launches"]
+        emit("fleet", shape=[T, C], window=w, stride=s, agg="max", dtype=dt,
+             segment_reduce_launches=went)
+    del x, out, ref
 
     # analytics operators on the card against the same code on the CPU;
     # fp32 convolutions in full precision (cuDNN defaults to TF32)
@@ -732,13 +831,6 @@ def main() -> None:
         torch.cuda.synchronize()
         return a.elapsed_time(b) / reps
 
-    def bound(x, stride):
-        n_seg = x.shape[0] // stride
-        nbytes = (n_seg * stride + n_seg) * x.shape[1] * x.element_size()
-        ops = n_seg * stride * x.shape[1]
-        t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
-        return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
-
     library = {"max": torch.amax, "sum": torch.sum}
     timed = {}
     for name, (x, stride) in main_shapes().items():
@@ -751,13 +843,14 @@ def main() -> None:
             else:
                 def lib_call(x=x, lib=lib, n_seg=n_seg, stride=stride):
                     return lib(x.view(n_seg, stride, x.shape[1]), 1)
-            b_ms, b_by = bound(x, stride)
-            t = {"ms": cuda_ms(lambda: segment_reduce(x, agg=agg,
-                                                      stride=stride)),
+            nbytes = (n_seg * stride + n_seg) * x.shape[1] * x.element_size()
+            # one fp32 compare or add per element
+            t = {**batches(cuda_ms, lambda: segment_reduce(
+                     x, agg=agg, stride=stride), "ms"),
                  "plain_ms": cuda_ms(lambda: segment_reduce_plain(
                      x, agg=agg, stride=stride)),
-                 "library_ms": cuda_ms(lib_call),
-                 "bound_ms": b_ms, "bound_by": b_by}
+                 **batches(cuda_ms, lib_call, "library_ms"),
+                 **bound(nbytes, n_seg * stride * x.shape[1], "float32")}
             timed[(name, agg)] = t
             emit("times", case=name, shape=list(x.shape), dtype=str(x.dtype),
                  stride=stride, agg=agg, nvidia_smi=smi0, **t)
@@ -777,36 +870,42 @@ def main() -> None:
     timed_full = time_attention_and_ssd(dev, gen, cuda_ms, smi0)
 
     # ---- result ----------------------------------------------------------------------
-    # window_agg at the Q2 fold, its launches on the pipeline's path; flash
-    # attention's and the SSD scan's two kernels each at full width in their
-    # types (bf16: wgmma, fp32: FMA), their launches on the calibration path
-    fold_t = timed[("q2_fold", "sum")]
+    # window_agg at the Q2 fold and the fleet shape (sum), its launches on
+    # the pipeline's path and on the fleet path; flash attention's and the SSD scan's two kernels
+    # each at full width in their types (bf16: wgmma; fp32: 3xTF32 for
+    # flash, FMA for the SSD), their launches on the calibration path
+    window = "src/repro/kernels/window_agg/kernel.py:45"
     flash = "src/repro/kernels/flash_attention/kernel.py:87"
     ssd = "src/repro/kernels/ssd_scan/kernel.py:71"
-    rows = [("window_agg.segment_reduce", "window_agg",
-             "src/repro/kernels/window_agg/kernel.py:45", launches, fold_err,
-             fold_t),
-            ("flash_attention.flash_attention_wgmma", "flash_attention_sm90",
-             flash, cal_launches["flash_attention_wgmma"],
-             full_err[("flash", "bfloat16")],
-             timed_full[("flash", "bfloat16")]),
-            ("flash_attention.flash_attention_fma", "flash_attention",
-             flash, cal_launches["flash_attention_fma"],
-             full_err[("flash", "float32")],
-             timed_full[("flash", "float32")]),
-            ("ssd_scan.ssd_scan_wgmma", "ssd_scan", ssd,
-             cal_launches["ssd_scan_wgmma"], full_err[("ssd", "bfloat16")],
-             timed_full[("ssd", "bfloat16")]),
-            ("ssd_scan.ssd_scan_fma", "ssd_scan", ssd,
-             cal_launches["ssd_scan_fma"], full_err[("ssd", "float32")],
-             timed_full[("ssd", "float32")])]
+    rows = [(f"window_agg.segment_reduce {shape}", "window_agg", window, n,
+             shape_err[shape], timed[(shape, "sum")])
+            for shape, n in (("q2_fold", launches),
+                             ("fleet_float32", fleet_launches["float32"]),
+                             ("fleet_bfloat16", fleet_launches["bfloat16"]))]
+    rows += [("flash_attention.flash_attention_wgmma", "flash_attention_sm90",
+              flash, cal_launches["flash_attention_wgmma"],
+              full_err[("flash", "bfloat16")],
+              timed_full[("flash", "bfloat16")]),
+             ("flash_attention.flash_attention_3xtf32",
+              "flash_attention_sm90_f32", flash,
+              cal_launches["flash_attention_3xtf32"],
+              full_err[("flash", "float32")],
+              timed_full[("flash", "float32")]),
+             ("ssd_scan.ssd_scan_wgmma", "ssd_scan", ssd,
+              cal_launches["ssd_scan_wgmma"], full_err[("ssd", "bfloat16")],
+              timed_full[("ssd", "bfloat16")]),
+             ("ssd_scan.ssd_scan_fma", "ssd_scan", ssd,
+              cal_launches["ssd_scan_fma"], full_err[("ssd", "float32")],
+              timed_full[("ssd", "float32")])]
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{src}.cu",
         "replaces": replaces, "launches": n, "max_abs_err": err,
         "ms": t["ms"], "plain_ms": t["plain_ms"],
-        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-        "library_ms": t["library_ms"]}
+        "bound_ms": t["bound_ms"],
+        "bound_by": "bytes" if t["bound_by"] == "bytes" else "operations",
+        "library_ms": t["library_ms"], "bound_detail": t["bound_by"],
+        "ms_spread": t["ms_spread"]}
         for name, src, replaces, n, err, t in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -5,7 +5,9 @@ Each source ``csrc/<name>.cu`` has a plain C interface and compiles with
 ``build/kernels/lib<name>-<digest>.so`` at the root of the checkout,
 which ``.gitignore`` lists. The digest covers the source, the shared
 headers ``csrc/*.cuh`` and the flags, so an edited source or header is
-rebuilt and a stale library is never loaded.
+rebuilt and a stale library is never loaded. ``ptxas`` reports each
+kernel's registers, shared memory and spills (``-Xptxas -v``); the
+report is kept beside the library and read by ``ptxas_usage``.
 Nothing is built when a module is imported: the first call that needs a
 kernel builds it. A missing ``nvcc`` or a failed build raises.
 """
@@ -15,6 +17,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -23,9 +26,10 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("window_agg", "flash_attention", "flash_attention_sm90", "ssd_scan")
+SOURCES = ("window_agg", "flash_attention_sm90", "flash_attention_sm90_f32",
+           "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def find_nvcc() -> str:
@@ -71,6 +75,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
     for n, (tmp, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode == 0:
+            todo[n].with_suffix(".ptxas.txt").write_text(log)
             os.replace(tmp, todo[n])
         else:
             os.unlink(tmp)
@@ -78,6 +83,46 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
     if failed:
         raise RuntimeError("nvcc failed to build " + "\n".join(failed))
     return paths
+
+
+def ptxas_usage(name: str) -> Dict[str, Dict[str, int]]:
+    """Kernel → its registers, static shared memory and spill bytes, from
+    ptxas's report on the built library of ``csrc/<name>.cu``. Kernel
+    names are always demangled, by ``c++filt`` (binutils, which nvcc's host
+    compiler needs), to the function and its template arguments, so that
+    they read the same wherever the library was built."""
+    text = library_path(name).with_suffix(".ptxas.txt").read_text()
+    usage, kernel = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            kernel = m.group(1)
+            usage[kernel] = {"registers": 0, "smem_bytes": 0,
+                             "spill_stores": 0, "spill_loads": 0}
+            continue
+        if kernel is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            usage[kernel]["spill_stores"] = int(m.group(1))
+            usage[kernel]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage[kernel]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            usage[kernel]["smem_bytes"] = int(m.group(1)) if m else 0
+    if not usage:
+        return usage
+    cxxfilt = shutil.which("c++filt")
+    if cxxfilt is None:
+        raise RuntimeError("c++filt not found on PATH: ptxas's kernel names "
+                           "cannot be demangled")
+    names = subprocess.run([cxxfilt], input="\n".join(usage),
+                           capture_output=True, text=True,
+                           check=True).stdout.split("\n")
+    return {re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "", new): v
+            for new, v in zip(names, usage.values())}
 
 
 @functools.cache

@@ -3,8 +3,8 @@
 //
 // Replaces the TPU Pallas kernel flash_attention_bhsd / _flash_kernel of
 // the JAX package (src/repro/kernels/flash_attention/kernel.py:87, its
-// pallas_call at :109) for bf16 inputs; float32 stays on the CUDA-core
-// kernel of flash_attention.cu. It computes
+// pallas_call at :109) for bf16 inputs; float32 runs in 3xTF32 on the
+// tensor cores in flash_attention_sm90_f32.cu. It computes
 //   o[b, i, h, :] = sum_j softmax_j(q[b, i, h, :] . k[b, j, kv, :] / sqrt(d))
 //                   v[b, j, kv, :]
 // in the model layout q [B, Sq, H, d], k/v [B, Skv, KV, d], o like q, with
@@ -51,9 +51,9 @@
 //
 // Plain C interface, loaded with ctypes. cuTensorMapEncodeTiled lives in
 // libcuda; the library looks it up at run time through the runtime's
-// entry-point query (cudaGetDriverEntryPoint) and links no libcuda. The
-// launch goes to the caller's stream; nothing here allocates or
-// synchronises. The entry point returns 0 on success, a cudaError_t, or
+// entry-point query (cudaGetDriverEntryPoint, tma.cuh) and links no
+// libcuda. The launch goes to the caller's stream; nothing here allocates
+// or synchronises. The entry point returns 0 on success, a cudaError_t, or
 // kEncodeFailed + the CUresult of a refused tensor map.
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -61,6 +61,7 @@
 #include <stdint.h>
 
 #include "sm90.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -69,7 +70,6 @@ constexpr int kBN = 128;        // keys per tile
 constexpr int kStages = 2;      // K/V ring depth
 constexpr int kConsumers = 2;   // consumer warpgroups of 64 query rows
 constexpr int kThreads = (kConsumers + 1) * 128;
-constexpr int kEncodeFailed = 100000;
 
 // the tiles of one head dim: each row of a tile is split into chunks of
 // one swizzle span (128 bytes, or 64 at d = 32), stored one after another
@@ -86,46 +86,6 @@ struct Cfg {
   // 1,024 bytes of slack to align the tiles, the tiles, 5 mbarriers
   static constexpr int kSmem = 1024 + kQBytes + 2 * kStages * kKVBytes + 64;
 };
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// wait until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
-                                            int c0, int c1, int c2,
-                                            uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(bar)
-      : "memory");
-}
 
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&d)[D / 2],
@@ -349,31 +309,6 @@ flash_forward_sm90(const __grid_constant__ CUtensorMap map_q,
                                   acc[4 * j + 3] * inv1);
     }
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // a 3-D map of a [B, S, heads * D] bf16 tensor (columns, rows, batch)

@@ -54,9 +54,11 @@
 //    G's accumulators to the register-A operand of M X without shared
 //    memory. The operands computed in between are rounded to bf16 where
 //    the products take them: B . w in pass 1, h_in in pass 2, M in pass 3.
-//  * fp32: the same passes on CUDA-core FMA (the JAX package's fp32
-//    tolerance rules out TF32), each thread a 4 x 4 to 8 x 8 register
-//    tile read from shared memory in 16-byte vectors.
+//  * fp32: the same passes on CUDA-core FMA (one TF32 product misses the
+//    JAX package's fp32 tolerance; the 3xTF32 split that
+//    flash_attention_sm90_f32.cu uses would hold it on the tensor cores),
+//    each thread a 4 x 4 to 8 x 8 register tile read from shared memory
+//    in 16-byte vectors.
 //  * exp(cum_i - cum_j) is taken only where j <= i: above the diagonal the
 //    exponent is positive and may overflow to inf, and inf . 0 is NaN. In
 //    fp32 the blocks of C B^T above the diagonal are not computed.

@@ -1,14 +1,19 @@
 """Causal flash attention on the card.
 
 ``flash_attention_bshd(q, k, v, causal=)`` launches one of two CUDA C++
-kernels, the ports of the JAX package's Pallas ``flash_attention_bhsd``:
-bf16 goes to ``kernels/csrc/flash_attention_sm90.cu`` (wgmma fed by TMA,
-``flash_attention_wgmma``), float32 to ``kernels/csrc/flash_attention.cu``
-(FMA on the CUDA cores, ``flash_attention_fma``). Both read the model layout
-(q [B, Sq, H, d], k/v [B, Skv, KV, d]) where it lies, resolve GQA by index
-and mask ``Skv`` themselves, so nothing is transposed, repeated or padded
-first. They take CUDA tensors only and raise on what the kernels do not
-take; the plain version is ``ref.attention_reference``.
+kernels, the ports of the JAX package's Pallas ``flash_attention_bhsd``,
+both on the tensor cores (wgmma fed by TMA): bf16 goes to
+``kernels/csrc/flash_attention_sm90.cu`` (``flash_attention_wgmma``),
+float32 to ``kernels/csrc/flash_attention_sm90_f32.cu``
+(``flash_attention_3xtf32``), which splits each fp32 operand into two
+TF32 parts and sums three TF32 products, so that it stays within the
+JAX package's fp32 tolerance (2e-5) where one TF32 product would not.
+Both read the model layout (q [B, Sq, H, d], k/v [B, Skv, KV, d]) where
+it lies, resolve GQA by index and mask ``Skv`` themselves, so nothing is
+repeated or padded first; the fp32 kernel's pre-pass writes the split
+parts of K and of V transposed into scratch that the wrapper allocates.
+They take CUDA tensors only and raise on what the kernels do not take;
+the plain version is ``ref.attention_reference``.
 """
 from __future__ import annotations
 
@@ -25,28 +30,23 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GRID_Y = 65535
 
 
-def _bind(name: str, entry: str) -> ctypes.CDLL:
+@functools.cache
+def _library(name: str, n_ptrs: int, tiles: tuple) -> ctypes.CDLL:
+    """The built ``csrc/<name>.cu`` with its ``<name>_forward`` (``n_ptrs``
+    device pointers, then B, H, KV, Sq, Skv, d, causal, scale, stream), its
+    ``<name>_error_string`` and its ``<name>_<tile>_tile`` queries bound."""
     lib = build.load(name)
-    fn = getattr(lib, f"{entry}_forward")
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 6 + [
+    fn = getattr(lib, f"{name}_forward")
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int64] * 6 + [
         ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = getattr(lib, f"{entry}_error_string")
+    err = getattr(lib, f"{name}_error_string")
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
-    return lib
-
-
-@functools.cache
-def _library_fma() -> ctypes.CDLL:
-    return _bind("flash_attention", "flash_attention")
-
-
-@functools.cache
-def _library_wgmma() -> ctypes.CDLL:
-    lib = _bind("flash_attention_sm90", "flash_attention_sm90")
-    lib.flash_attention_sm90_query_tile.argtypes = []
-    lib.flash_attention_sm90_query_tile.restype = ctypes.c_int
+    for tile in tiles:
+        query = getattr(lib, f"{name}_{tile}_tile")
+        query.argtypes = []
+        query.restype = ctypes.c_int
     return lib
 
 
@@ -83,19 +83,20 @@ def _check_grid(q: torch.Tensor, grid_y: int) -> None:
                          "blocks along one launch dimension")
 
 
-def _launch(lib: ctypes.CDLL, entry: str, q, k, v, causal: bool):
+def _launch(lib: ctypes.CDLL, name: str, kernel: str, ptrs: tuple, q, k,
+            causal: bool) -> None:
+    """Calls ``<name>_forward`` on ``ptrs`` and q's and k's shapes on the
+    current stream of q's device; raises with the library's message."""
     B, Sq, H, d = q.shape
     _, Skv, KV, _ = k.shape
-    out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, f"{entry}_forward")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, KV,
-            Sq, Skv, d, int(causal), 1.0 / math.sqrt(d), stream)
+        err = getattr(lib, f"{name}_forward")(
+            *ptrs, B, H, KV, Sq, Skv, d, int(causal), 1.0 / math.sqrt(d),
+            stream)
     if err:
-        msg = getattr(lib, f"{entry}_error_string")(err).decode()
-        raise RuntimeError(f"{entry} kernel launch failed: {msg} ({err})")
-    return out
+        msg = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{kernel} kernel launch failed: {msg} ({err})")
 
 
 def flash_attention_wgmma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -104,22 +105,41 @@ def flash_attention_wgmma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``flash_attention_bshd`` takes them. Counted in
     ``flash_attention_wgmma.launches``."""
     _check(q, k, v, torch.bfloat16)
-    lib = _library_wgmma()
+    lib = _library("flash_attention_sm90", 4, ("query",))
     _check_grid(q, -(-q.shape[1] // lib.flash_attention_sm90_query_tile()))
-    out = _launch(lib, "flash_attention_sm90", q, k, v, causal)
+    out = torch.empty_like(q)
+    _launch(lib, "flash_attention_sm90", "flash_attention_wgmma",
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()), q, k,
+            causal)
     flash_attention_wgmma.launches += 1
     return out
 
 
-def flash_attention_fma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True) -> torch.Tensor:
-    """The float32 kernel (CUDA-core FMA) on float32 q, k, v as
-    ``flash_attention_bshd`` takes them. Counted in
-    ``flash_attention_fma.launches``."""
+def flash_attention_3xtf32(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, causal: bool = True
+                           ) -> torch.Tensor:
+    """The float32 kernel (3xTF32 on wgmma + TMA) on float32 q, k, v as
+    ``flash_attention_bshd`` takes them. Its pre-pass writes K's tf32 hi
+    and lo parts and V's, transposed to [B, KV, d, Skv_pad], into scratch
+    allocated here (twice the bytes of k and v). Counted in
+    ``flash_attention_3xtf32.launches``."""
     _check(q, k, v, torch.float32)
-    _check_grid(q, q.shape[0] * q.shape[2])
-    out = _launch(_library_fma(), "flash_attention", q, k, v, causal)
-    flash_attention_fma.launches += 1
+    lib = _library("flash_attention_sm90_f32", 8, ("query", "key"))
+    B, Sq, H, d = q.shape
+    _, Skv, KV, _ = k.shape
+    _check_grid(q, max(-(-Sq // lib.flash_attention_sm90_f32_query_tile()),
+                       B * KV))
+    key_tile = lib.flash_attention_sm90_f32_key_tile()
+    skv_pad = -(-Skv // key_tile) * key_tile
+    out = torch.empty_like(q)
+    k_parts = torch.empty((2, *k.shape), dtype=k.dtype, device=k.device)
+    vt_parts = torch.empty((2, B, KV, d, skv_pad), dtype=v.dtype,
+                           device=v.device)
+    _launch(lib, "flash_attention_sm90_f32", "flash_attention_3xtf32",
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             k_parts[0].data_ptr(), k_parts[1].data_ptr(),
+             vt_parts[0].data_ptr(), vt_parts[1].data_ptr()), q, k, causal)
+    flash_attention_3xtf32.launches += 1
     return out
 
 
@@ -128,11 +148,11 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: [B, Sq, H, d]; k/v: [B, Skv, KV, d], contiguous CUDA tensors of
     one type (float32 or bfloat16), d ∈ {32, 64, 128} → [B, Sq, H, d] of
     q's type: bf16 through ``flash_attention_wgmma``, anything else through
-    ``flash_attention_fma``, which raises unless it is float32. Counted in
+    ``flash_attention_3xtf32``, which raises unless it is float32. Counted in
     ``flash_attention_bshd.launches`` as well as in the kernel's own
     counter."""
     kernel = (flash_attention_wgmma if q.dtype == torch.bfloat16
-              else flash_attention_fma)
+              else flash_attention_3xtf32)
     out = kernel(q, k, v, causal)
     flash_attention_bshd.launches += 1
     return out
@@ -140,4 +160,4 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_attention_bshd.launches = 0
 flash_attention_wgmma.launches = 0
-flash_attention_fma.launches = 0
+flash_attention_3xtf32.launches = 0

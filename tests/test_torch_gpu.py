@@ -13,9 +13,8 @@ import torch
 
 from repro_torch.kernels.flash_attention import (attention_reference,
                                                  flash_attention)
-from repro_torch.kernels.flash_attention.kernel import (flash_attention_bshd,
-                                                        flash_attention_fma,
-                                                        flash_attention_wgmma)
+from repro_torch.kernels.flash_attention.kernel import (
+    flash_attention_3xtf32, flash_attention_bshd, flash_attention_wgmma)
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_reference
 from repro_torch.kernels.ssd_scan.kernel import (ssd_scan_blh, ssd_scan_fma,
                                                  ssd_scan_wgmma)
@@ -97,6 +96,54 @@ def test_window_at_the_calibrators_shape(cuda, agg, dtype):
             assert bool((err <= SEGMENT_SUM_RTOL[dtype] * scale).all())
 
 
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def _x(cuda, T, C, dtype, seed, offset=0):
+    """A seeded [T, C] of ``dtype`` on the card, starting ``offset``
+    elements into its storage (a view whose pointer is off 16 bytes when
+    offset · elsize is not a multiple of 16)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    flat = torch.randn(T * C + offset, device=cuda, generator=g) * 10
+    return flat.to(getattr(torch, dtype))[offset:].view(T, C)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,C,stride,dtype,offset,width", [
+    (86_400, 1_024, 60, "float32", 0, "vector"),      # the fleet shape
+    (86_400, 1_024, 60, "bfloat16", 0, "vector"),
+    (648_000, 128, 648_000, "float32", 0, "vector"),  # the Q2 fold
+    (64_000, 128, 64_000, "bfloat16", 0, "vector"),   # split, bf16
+    (100_000, 5, 100, "float32", 5, "scalar"),   # x[1:] of [T, 5]: 20 B off
+    (100_000, 5, 100_000, "float32", 5, "scalar"),    # ... split
+    (100_001, 128, 100_001, "float32", 1, "scalar")])  # 16-B rows, 4 B off
+def test_both_load_widths_match_plain(cuda, T, C, stride, dtype, offset,
+                                      width):
+    """Each shape runs the load width its rows allow, counted apart: max
+    and min bit-equal to the plain version, sums within SEGMENT_SUM_RTOL ·
+    Σ|x|, reruns bit-identical."""
+    x = _x(cuda, T, C, dtype, 7, offset)
+    assert x.is_contiguous() and (x.data_ptr() % 16 != 0) == (offset > 0)
+    for a in ("max", "min", "sum"):
+        before = (segment_reduce.vector_launches,
+                  segment_reduce.scalar_launches)
+        k = segment_reduce(x, agg=a, stride=stride)
+        went = (segment_reduce.vector_launches - before[0],
+                segment_reduce.scalar_launches - before[1])
+        assert went == ((1, 0) if width == "vector" else (0, 1))
+        p = segment_reduce_plain(x, agg=a, stride=stride)
+        if a == "sum":
+            scale = segment_reduce_plain(x.abs(), agg="sum",
+                                         stride=stride).float()
+            err = (k.float() - p.float()).abs()
+            assert bool((err <= SEGMENT_SUM_RTOL[dtype] * scale).all())
+        else:
+            assert torch.equal(_bits(k), _bits(p))
+        assert torch.equal(_bits(k), _bits(segment_reduce(x, agg=a,
+                                                          stride=stride)))
+
+
 @pytest.mark.gpu
 def test_kernel_rejects_what_it_does_not_take(cuda):
     x = torch.randn(64, 8, device=cuda)
@@ -109,11 +156,15 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
 
 
 @pytest.mark.gpu
-def test_kernel_propagates_nan(cuda):
-    x = torch.randn(1000, 4, device=cuda)
+@pytest.mark.parametrize("T,C,stride", [(1000, 4, 100), (1000, 5, 100),
+                                        (64_000, 128, 16_000)])
+def test_kernel_propagates_nan(cuda, T, C, stride):
+    """One NaN poisons its segment's column only, in both load widths and
+    through the split's partials."""
+    x = torch.randn(T, C, device=cuda)
     x[5, 1] = float("nan")
     for a in ("max", "min", "sum"):
-        k = segment_reduce(x, agg=a, stride=100)
+        k = segment_reduce(x, agg=a, stride=stride)
         assert k[0, 1].isnan() and not k[1:, 1].isnan().any()
         assert not k[:, [0, 2, 3]].isnan().any()
 
@@ -141,10 +192,6 @@ FLASH_CASES = [(*c, FLASH_TOL[c[-1]]) for c in FLASH_SWEEP]
 SSD_CASES = [(*c, SSD_RTOL[c[-1]]) for c in SSD_SWEEP]
 
 
-def _bits(t):
-    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,Sq,Skv,H,KV,d,causal,dtype,tol", FLASH_CASES)
 def test_flash_kernel_matches_plain(cuda, B, Sq, Skv, H, KV, d, causal, dtype,
@@ -170,12 +217,13 @@ def test_flash_kernel_matches_plain(cuda, B, Sq, Skv, H, KV, d, causal, dtype,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,kernel", [("bfloat16", "wgmma"),
-                                          ("float32", "fma")])
+                                          ("float32", "3xtf32")])
 def test_flash_dtype_picks_its_kernel(cuda, dtype, kernel):
-    """bf16 launches the wgmma + TMA kernel, float32 the CUDA-core one,
+    """bf16 launches the bf16 wgmma + TMA kernel, float32 the 3xTF32 one,
     each counted once, and flash_attention_bshd counts both."""
     q = torch.randn(1, 128, 2, 64, device=cuda).to(getattr(torch, dtype))
-    counters = {"wgmma": flash_attention_wgmma, "fma": flash_attention_fma}
+    counters = {"wgmma": flash_attention_wgmma,
+                "3xtf32": flash_attention_3xtf32}
     before = {n: c.launches for n, c in counters.items()}
     total = flash_attention_bshd.launches
     flash_attention(q, q, q)
@@ -339,7 +387,7 @@ def test_calibration_on_the_card_equals_the_cpu(cuda):
     gpu, cpu = KernelCalibrator(), KernelCalibrator(device="cpu")
     assert gpu.device == cuda
     counters = (segment_reduce, flash_attention_bshd, flash_attention_wgmma,
-                flash_attention_fma, ssd_scan_blh, ssd_scan_wgmma,
+                flash_attention_3xtf32, ssd_scan_blh, ssd_scan_wgmma,
                 ssd_scan_fma)
     before = [c.launches for c in counters]
     for op, agg, m in (("window_agg", "max", 3), ("ssd_scan", "max", 2),

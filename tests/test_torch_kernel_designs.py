@@ -9,6 +9,13 @@ inputs, under the limits of ``repro_torch.kernels.sweeps``.
 * ``flash_design``: ``csrc/flash_attention_sm90.cu`` in bf16: key tiles of
   128, an online softmax in fp32 with ``exp2`` and log2(e) folded into the
   scale, P rounded to bf16 before P·V, a row that sees no key giving 0.
+* ``flash_3xtf32_design``: ``csrc/flash_attention_sm90_f32.cu`` in fp32:
+  each operand split into TF32 parts hi = tf32(a), lo = tf32(a - hi)
+  (round to nearest, ties away, emulated on the bits), each product
+  lo·hi + hi·lo and then hi·hi with fp32 sums, key tiles of 32, P split
+  in registers, V^T's keys of each group of 8 in the order 0 2 4 6 1 3 5
+  7; with ``products=1`` one TF32 product instead, the design the split
+  replaces.
 * ``ssd_design``: ``csrc/ssd_scan.cu``: chunk states, a state pass and
   chunk outputs at chunk length Q; in bf16 the operands computed in
   between are rounded where the kernel rounds them (B·w, h_in, M).
@@ -30,6 +37,7 @@ from repro_torch.kernels.sweeps import (FLASH_SWEEP, FLASH_TOL,
 torch.set_num_threads(2)
 
 KEY_TILE = 128          # flash_attention_sm90.cu kBN
+F32_KEY_TILE = 32       # flash_attention_sm90_f32.cu kBN
 LOG2E = 1.4426950408889634
 
 
@@ -62,6 +70,68 @@ def flash_design(q, k, v, causal: bool) -> torch.Tensor:
         m = m_new
     out = acc / torch.where(l == 0, torch.ones(()), l)[..., None]
     return out.permute(0, 2, 1, 3).bfloat16()
+
+
+def tf32(t: torch.Tensor) -> torch.Tensor:
+    """fp32 → TF32 (10 mantissa bits), rounded to nearest with ties away
+    from zero, as PTX cvt.rna.tf32.f32: half of the 13 low bits added to
+    the magnitude's bits, then the 13 cleared."""
+    b = t.float().contiguous().view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(t: torch.Tensor):
+    hi = tf32(t)
+    return hi, tf32(t - hi)
+
+
+def _key_order(n: int) -> torch.Tensor:
+    """The keys of a V^T row of n: within each group of 8, 0 2 4 6 1 3 5 7
+    (flash_attention_sm90_f32.cu key_at)."""
+    p = torch.arange(n)
+    q = p % 8
+    return p - q + torch.where(q < 4, 2 * q, 2 * (q - 4) + 1)
+
+
+def flash_3xtf32_design(q, k, v, causal: bool, products: int = 3
+                        ) -> torch.Tensor:
+    """q [B, Sq, H, d], k/v [B, Skv, KV, d] fp32 → o fp32, the way the
+    3xTF32 kernel computes it (``products=3``), or with one TF32 product
+    per matrix product (``products=1``)."""
+    B, Sq, H, d = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    qf = q.float().permute(0, 2, 1, 3)                           # [B,H,Sq,d]
+    kf = k.float().repeat_interleave(H // KV, 2).permute(0, 2, 1, 3)
+    vf = v.float().repeat_interleave(H // KV, 2).permute(0, 2, 1, 3)
+
+    def product(a, b):
+        (a_hi, a_lo), (b_hi, b_lo) = split_tf32(a), split_tf32(b)
+        if products == 1:
+            return a_hi @ b_hi
+        return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi        # cross first
+
+    scale_log2 = (1.0 / math.sqrt(d)) * LOG2E
+    rows = torch.arange(Sq)[:, None] + (Skv - Sq)
+    m = torch.full((B, H, Sq), -math.inf)
+    l = torch.zeros(B, H, Sq)
+    acc = torch.zeros(B, H, Sq, d)
+    for k0 in range(0, Skv, F32_KEY_TILE):
+        kt, vt = kf[:, :, k0:k0 + F32_KEY_TILE], vf[:, :, k0:k0 + F32_KEY_TILE]
+        s = product(qf, kt.transpose(-1, -2))
+        keys = torch.arange(k0, k0 + kt.shape[2])[None, :]
+        valid = keys <= rows if causal else torch.ones_like(keys <= rows)
+        s = s.masked_fill(~valid, -math.inf)
+        m_new = torch.maximum(m, s.amax(-1))
+        ms = torch.where(m_new == -math.inf, torch.zeros(()),
+                         m_new * scale_log2)
+        alpha = torch.exp2(m * scale_log2 - ms)
+        p = torch.exp2(s * scale_log2 - ms[..., None])
+        l = l * alpha + p.sum(-1)
+        order = _key_order(kt.shape[2])
+        acc = acc * alpha[..., None] + product(p[..., order], vt[..., order, :])
+        m = m_new
+    out = acc / torch.where(l == 0, torch.ones(()), l)[..., None]
+    return out.permute(0, 2, 1, 3).contiguous()
 
 
 def _bf16(t: torch.Tensor, on: bool) -> torch.Tensor:
@@ -173,6 +243,59 @@ def test_flash_design_rounding_p_costs_about_one_bf16_step():
         is_causal=True).transpose(1, 2)
     rel = (rounded - exact).abs().amax(-1) / exact.abs().amax(-1)
     assert float(rel.max()) <= 2 * 2.0 ** -7
+
+
+FLASH_F32 = [c[:7] for c in FLASH_SWEEP if c[-1] == "float32"]
+
+
+def _jax_flash_f32(arrays, causal):
+    return np.asarray(jax_flash(*(jnp.asarray(a) for a in arrays),
+                                causal=causal, interpret=True))
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,d,causal", FLASH_F32)
+def test_flash_3xtf32_design_matches_jax(B, Sq, Skv, H, KV, d, causal):
+    """The split products stay within the fp32 limit (2e-5) of the JAX
+    package's kernel on every fp32 case of the sweep."""
+    arrays = _flash_inputs(B, Sq, Skv, H, KV, d)
+    j = _jax_flash_f32(arrays, causal)
+    t = flash_3xtf32_design(*(torch.from_numpy(a) for a in arrays),
+                            causal).numpy()
+    assert np.isfinite(t).all()
+    np.testing.assert_allclose(t, j, atol=FLASH_TOL["float32"], rtol=0)
+    if causal and Sq > Skv:
+        assert not t[:, :Sq - Skv].any()
+
+
+def test_one_tf32_product_misses_the_fp32_limit():
+    """Why the kernel splits: with one TF32 product per matrix product the
+    first fp32 case of the sweep is off by more than 2e-5, the three
+    products are within it."""
+    B, Sq, Skv, H, KV, d, causal = FLASH_F32[0]
+    arrays = _flash_inputs(B, Sq, Skv, H, KV, d)
+    j = _jax_flash_f32(arrays, causal)
+    tensors = [torch.from_numpy(a) for a in arrays]
+    one = np.abs(flash_3xtf32_design(*tensors, causal, products=1).numpy()
+                 - j).max()
+    three = np.abs(flash_3xtf32_design(*tensors, causal).numpy() - j).max()
+    assert one > FLASH_TOL["float32"] >= three
+
+
+def test_tf32_split_keeps_about_22_bits():
+    """hi has its 13 low bits clear and is within 2^-11 of a; hi + lo is
+    within 2^-21 of a, on seeded normal values of many magnitudes."""
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy((rng.standard_normal(100_000)
+                          * 10.0 ** rng.integers(-6, 7, 100_000))
+                         .astype(np.float32))
+    hi, lo = split_tf32(a)
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert not (lo.view(torch.int32) & 0x1FFF).any()
+    assert bool(((a - hi).abs() <= 2.0 ** -11 * a.abs()).all())
+    err = (a.double() - hi.double() - lo.double()).abs()
+    assert bool((err <= 2.0 ** -21 * a.double().abs()).all())
+    assert torch.equal(tf32(torch.tensor([1.0 + 2.0 ** -11])),
+                       torch.tensor([1.0 + 2.0 ** -10]))   # a tie, away
 
 
 # ---- SSD -------------------------------------------------------------------
