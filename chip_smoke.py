@@ -19,7 +19,9 @@ JSON line; any failure exits non-zero:
           plus NaN cases and a bitwise rerun check; window_agg in both of
           its load widths (16-byte loads where every row is 16-byte
           aligned, one element per load else: C = 1, 3, 5, 130, the
-          calibrator's [768, 1], views whose pointer is off 16 bytes),
+          calibrator's [4·m·64, 1] at every window/stride ratio m that the
+          calibrate and scenario phases hand it, views whose pointer is
+          off 16 bytes),
           each call counted in its width's counter; flash attention has
           two kernels, wgmma in bf16 and 3xTF32 on wgmma in fp32, the
           SSD wgmma in bf16 and CUDA-core FMA in fp32, and each call must
@@ -45,6 +47,18 @@ JSON line; any failure exits non-zero:
           and a seeded trace of their DC fires runs through
           ``Simulator(HintedVPTR(), cost)``; the launch counters show that
           every kernel ran, and the card's calibrations equal the CPU's
+  scenario  the scenario layer through its users' entry points: the
+          three recorded scenarios of BENCH_placement.json compiled from
+          their specs and replayed under their recorded plans with
+          ``run_plan`` (VoS within 1e-3, fires and records as recorded, the
+          ledger conserved), then heavy_analytics compiled with
+          ``ScenarioSpec.compile(calibrator=KernelCalibrator())``: the
+          counters, set to 0 just before, show that the compile launched
+          window_agg and both flash kernels on the card, and its profiles
+          and its engine's run equal those of the CPU's calibrator.
+          The calibrate and scenario lines carry ``gc``: the collections
+          of each generation inside the phase and the seconds spent in
+          them
   paper4  the paper's §4 experiment (examples/vos_scheduler_demo.py) on the
           port's core: six heuristics, 120 jobs each, a 70% power cap; the
           VoS must equal the JAX package's, recorded below
@@ -53,7 +67,9 @@ JSON line; any failure exits non-zero:
           bound; the kernel and the library call as the median of 5
           batches of 20 launches after 5 warm-ups, with the batches'
           spread; at full width each kernel's device time from
-          torch.profiler (the SSD's three passes apart); the host-to-device
+          torch.profiler (the SSD's three passes apart; a trace that saw
+          no kernel prints a ``profiler_retry`` line and is taken again);
+          the host-to-device
           copy and ``run_window`` end to end; peak memory
 
 The bound is the larger of the bytes (each input read once, each output
@@ -74,6 +90,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -103,6 +120,7 @@ Q2_MEAN_RTOL = 1e-5
 ENGINE_CFG = SimpleNamespace(records_per_step=5_000, mxu_efficiency=0.5,
                              dc_step_floor_s=1e-3)
 N_FIRES = 90
+PROFILER_ATTEMPTS = 3       # traces kernel_device_ms takes before it fails
 # examples/vos_scheduler_demo.py on the JAX package: VoS per heuristic
 PAPER4_VOS = {"Simple": 83.20119626628816, "VPT": 167.51703734084728,
               "VPTR": 140.88804074535503, "VPT-CPC": 117.44285432262758,
@@ -111,6 +129,34 @@ PAPER4_VOS = {"Simple": 83.20119626628816, "VPT": 167.51703734084728,
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+class GcClock:
+    """Python's garbage collections by generation, and the host seconds
+    spent in them, counted through ``gc.callbacks`` from construction."""
+
+    def __init__(self):
+        self.collections, self.seconds, self._t0 = [0, 0, 0], [0.0] * 3, 0.0
+        gc.callbacks.append(self)
+
+    def __call__(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        else:
+            g = info["generation"]
+            self.collections[g] += 1
+            self.seconds[g] += time.perf_counter() - self._t0
+
+    def read(self):
+        return list(self.collections), list(self.seconds)
+
+    def since(self, then) -> dict:
+        n, t = then
+        return {"collections": [a - b for a, b in zip(self.collections, n)],
+                "seconds": [a - b for a, b in zip(self.seconds, t)]}
+
+
+GC_CLOCK = GcClock()
 
 
 def emit(phase: str, **fields) -> None:
@@ -295,6 +341,21 @@ def calibrated_services():
                             bytes_per_record=512.0)]
 
 
+def calibrator_window_ratios() -> list:
+    """The window/stride ratios m, by the calibrator's own formula, of
+    every window_agg service that the calibrate and scenario phases hand
+    to KernelCalibrator: calibrated_services() and the services of the
+    recorded BENCH_placement.json scenarios."""
+    from repro_torch.scenario import ScenarioSpec
+    from repro_torch.scenario.calibrate import window_ratio
+    recorded = json.loads((ROOT / "BENCH_placement.json").read_text())
+    services = calibrated_services() + [
+        s for sc in recorded["scenarios"].values()
+        for s in ScenarioSpec.from_dict(sc["spec"]).services]
+    return sorted({window_ratio(s) for s in services
+                   if s.operator == "window_agg"})
+
+
 def fire_tasks(profiles, cost, n=N_FIRES, seed=SEED):
     """A seeded trace of DC fires built the way the JAX package's
     ScenarioEngine._make_task builds them: one task per fire,
@@ -320,19 +381,14 @@ def fire_tasks(profiles, cost, n=N_FIRES, seed=SEED):
     return out
 
 
-def calibration_path() -> dict:
-    """KernelCalibrator() on the card → calibrate_profiles →
-    analytics_cost_model → Simulator(HintedVPTR(), cost). Returns the
-    launches of each kernel in this run."""
-    from repro_torch.core.simulator import Simulator
+def zeroed_counters() -> dict:
+    """The launch counters of the calibrator's kernels by name, each set
+    to 0 (``window_agg``'s counts by load width too)."""
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_3xtf32, flash_attention_bshd, flash_attention_wgmma)
     from repro_torch.kernels.ssd_scan.kernel import (ssd_scan_blh, ssd_scan_fma,
                                                      ssd_scan_wgmma)
     from repro_torch.kernels.window_agg.kernel import segment_reduce
-    from repro_torch.scenario import (HintedVPTR, KernelCalibrator,
-                                      analytics_cost_model, calibrate_profiles)
-
     counters = {"window_agg": segment_reduce, "flash_attention":
                 flash_attention_bshd, "flash_attention_wgmma":
                 flash_attention_wgmma, "flash_attention_3xtf32":
@@ -341,6 +397,20 @@ def calibration_path() -> dict:
     for c in counters.values():
         c.launches = 0
     segment_reduce.scalar_launches = segment_reduce.vector_launches = 0
+    return counters
+
+
+def calibration_path() -> dict:
+    """KernelCalibrator() on the card → calibrate_profiles →
+    analytics_cost_model → Simulator(HintedVPTR(), cost). Returns the
+    launches of each kernel in this run."""
+    from repro_torch.core.simulator import Simulator
+    from repro_torch.kernels.window_agg.kernel import segment_reduce
+    from repro_torch.scenario import (HintedVPTR, KernelCalibrator,
+                                      analytics_cost_model, calibrate_profiles)
+
+    counters = zeroed_counters()
+    gc0 = GC_CLOCK.read()
     t0 = time.perf_counter()
     services = calibrated_services()
     profiles, cal = calibrate_profiles(SimpleNamespace(services=services),
@@ -373,8 +443,104 @@ def calibration_path() -> dict:
                 for (a, s), c in cost.cells.items()},
          fires=N_FIRES, vos=res.vos, vos_normalized=res.vos_normalized,
          completed=res.completed, dropped=res.dropped,
-         energy_j=res.total_energy_j, seconds=wall)
+         energy_j=res.total_energy_j, seconds=wall, gc=GC_CLOCK.since(gc0))
     return launches
+
+
+def scenario_path(checked_ratios) -> None:
+    """The scenario layer as its users drive it. (a) The three recorded
+    scenarios of BENCH_placement.json at their recorded size, compiled
+    from their specs and replayed under their recorded searched, all-edge
+    and all-DC plans: VoS within 1e-3 of the recorded value, feasibility,
+    fires and records as recorded, the ledger conserved. (b)
+    heavy_analytics compiled with ``KernelCalibrator()`` on the card, the
+    launch counters set to 0 just before: the compile must launch
+    window_agg and both flash kernels, its profiles must equal those of
+    ``KernelCalibrator(device="cpu")``, and the recorded searched plan
+    must run to the same VoS, ledger and energy on both engines, and
+    every window/stride ratio it dry-ran window_agg at must be one of
+    ``checked_ratios``, the ratios held against the plain version."""
+    from repro_torch.placement import PlacementPlan
+    from repro_torch.scenario import KernelCalibrator, ScenarioSpec
+
+    recorded = json.loads((ROOT / "BENCH_placement.json").read_text())
+    replays = {}
+    for name, sc in recorded["scenarios"].items():
+        t0 = time.perf_counter()
+        engine = ScenarioSpec.from_dict(sc["spec"]).compile()
+        compile_s = time.perf_counter() - t0
+        names = list(engine.topology)
+        chips0 = sc["search"]["chips_options"][0]
+        plans = {"searched": PlacementPlan.from_dict(
+                     sc["search"]["assignments"]),
+                 "all_edge": PlacementPlan.all_edge(names),
+                 "all_dc": PlacementPlan.all_dc(names, chips=chips0)}
+        rows = {}
+        for key, plan in plans.items():
+            t0 = time.perf_counter()
+            r = engine.run_plan(plan)
+            wall = time.perf_counter() - t0
+            rec, got = sc[key], r.summary()
+            what = f"scenario {name} {key}"
+            require(r.feasible == rec["feasible"],
+                    f"{what}: feasible {r.feasible}")
+            if rec["vos"] is None:
+                require(r.vos == float("-inf"), f"{what}: VoS {r.vos}")
+            else:
+                require(abs(r.vos - rec["vos"]) <= 1e-3,
+                        f"{what}: VoS {r.vos!r} vs recorded {rec['vos']}")
+            require(got["fires"] == rec["fires"]
+                    and got["records"] == rec["records"],
+                    f"{what}: fires {got['fires']} records {got['records']}")
+            require(r.ledger.conserved(), f"{what}: ledger not conserved")
+            rows[key] = {"plan": plan.label,
+                         "vos": r.vos if r.feasible else None,
+                         "recorded_vos": rec["vos"],
+                         "energy_j": r.energy_total_j, "seconds": wall}
+        replays[name] = {"compile_seconds": compile_s, "plans": rows}
+
+    sc = recorded["scenarios"]["heavy_analytics"]
+    spec = ScenarioSpec.from_dict(sc["spec"])
+    counters = zeroed_counters()
+    gc0 = GC_CLOCK.read()
+    t0 = time.perf_counter()
+    cal = KernelCalibrator()
+    card = spec.compile(calibrator=cal)
+    card_s = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    ratios = sorted({c.m for c in cal.log if c.operator == "window_agg"})
+    require(set(ratios) <= set(checked_ratios),
+            f"window_agg dry-run at ratios {ratios}, checked {checked_ratios}")
+    require(all(launches[k] > 0 for k in ("window_agg",
+                                           "flash_attention_wgmma",
+                                           "flash_attention_3xtf32")),
+            f"the calibrated compile missed a kernel: {launches}")
+    t0 = time.perf_counter()
+    cpu = spec.compile(calibrator=KernelCalibrator(device="cpu"))
+    cpu_s = time.perf_counter() - t0
+    fpr = {k: p.flops_per_record for k, p in card.profiles.items()}
+    cpu_fpr = {k: p.flops_per_record for k, p in cpu.profiles.items()}
+    require(card.profiles == cpu.profiles,
+            f"card profiles {fpr} != CPU {cpu_fpr}")
+    require(fpr["classify"] == 65_792.0, f"classify: {fpr['classify']}")
+    plan = PlacementPlan.from_dict(sc["search"]["assignments"])
+    t0 = time.perf_counter()
+    a = card.run_plan(plan)
+    run_s = time.perf_counter() - t0
+    b = cpu.run_plan(plan)
+    require(a.feasible and a.ledger.conserved() and math.isfinite(a.vos),
+            f"calibrated heavy_analytics: VoS {a.vos}, feasible {a.feasible}")
+    require((a.vos, a.ledger.totals(), a.energy_total_j)
+            == (b.vos, b.ledger.totals(), b.energy_total_j),
+            f"card engine VoS {a.vos!r} energy {a.energy_total_j!r} != CPU "
+            f"VoS {b.vos!r} energy {b.energy_total_j!r}")
+    emit("scenario", replays=replays, calibrated={
+        "scenario": "heavy_analytics", "compile_seconds": card_s,
+        "cpu_compile_seconds": cpu_s, "launches": launches,
+        "flops_per_record": fpr, "plan": plan.label, "vos": a.vos,
+        "energy_j": a.energy_total_j, "ledger": a.ledger.totals(),
+        "run_plan_seconds": run_s, "window_agg_ratios": ratios},
+         gc=GC_CLOCK.since(gc0))
 
 
 def paper4() -> None:
@@ -406,25 +572,32 @@ def kernel_device_ms(fn, n=10) -> dict:
     """Device time per call of each kernel that fn launches, by name, from
     torch.profiler over n calls after one warm-up. Only entries seen a
     multiple of n times count: the profiler's own buffer set-up shows as a
-    device entry seen once."""
+    device entry seen once. A trace that sees no kernel n times (the
+    profiler drops a trace's device events now and then) is reported on a
+    ``profiler_retry`` line and taken again, up to PROFILER_ATTEMPTS
+    times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", None)
-        if t is None:
-            t = e.self_cuda_time_total
-        if t > 0 and e.count % n == 0:
-            name = re.sub(r"^void |\(anonymous namespace\)::", "", e.key)
-            out[name.split("(")[0]] = t / n / 1e3
-    require(bool(out), "torch.profiler saw no device time")
-    return out
+    for attempt in range(1, PROFILER_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            t = getattr(e, "self_device_time_total", None)
+            if t is None:
+                t = e.self_cuda_time_total
+            if t > 0 and e.count % n == 0:
+                name = re.sub(r"^void |\(anonymous namespace\)::", "", e.key)
+                out[name.split("(")[0]] = t / n / 1e3
+        if out:
+            return out
+        emit("profiler_retry", attempt=attempt)
+    raise SmokeFailure(f"torch.profiler saw no device time in "
+                       f"{PROFILER_ATTEMPTS} traces")
 
 
 def time_attention_and_ssd(dev, gen, cuda_ms, smi0) -> dict:
@@ -597,39 +770,45 @@ def main() -> None:
         require(torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol),
                 f"window_aggregate[{T},{C}] w{w}/s{s} {agg} {dt} vs reference")
 
-    # the calibrator's dry-run shape (scenario/calibrate.py _dry_window_agg
-    # at stride 64, m = 3): [768, 1] in f32 and bf16, window 192; its ones
-    # and seeded values, from a generator of their own so the draws below
-    # stay as they were
-    T, w, s = 4 * 3 * 64, 3 * 64, 64
+    # the calibrator's dry-run shapes (KernelCalibrator.window_shape, [T, 1]
+    # with window m·64 and stride 64) at every ratio m that the calibrate
+    # and scenario phases hand it, in f32 and bf16; its ones and seeded
+    # values, from a generator of their own so the draws below stay as
+    # they were
+    from repro_torch.scenario import KernelCalibrator
+    cal_ratios = calibrator_window_ratios()
     g_cal = torch.Generator(device=dev).manual_seed(SEED + 1)
-    seeded = torch.randn(T, 1, device=dev, generator=g_cal) * 10
-    for (name, x), dt in itertools.product(
-            (("ones", torch.ones(T, 1, device=dev)), ("randn", seeded)),
-            dtypes):
-        x = x.to(dtypes[dt])
-        for a in ("max", "min", "sum"):
-            check_segment(x, s, a,
-                          f"calibrator dry-run [{T},1]/{s} {name} {dt} {a}")
-        for a in ("max", "min", "sum", "mean"):
-            out = window_aggregate(x, agg=a, window=w, stride=s)
-            ref = window_aggregate_reference(x, agg=a, window=w, stride=s)
-            torch.cuda.synchronize()
-            what = (f"window_aggregate calibrator dry-run {name} {dt} {a}: "
-                    f"{out.flatten().tolist()} vs {ref.flatten().tolist()}")
-            require(out.shape == ref.shape == ((T - w) // s + 1, 1)
-                    and out.dtype == ref.dtype, what)
-            if a in ("max", "min"):
-                ok = torch.equal(bits(out), bits(ref))
-            elif dt == "float32" or name == "ones":
-                ok = torch.allclose(out.float(), ref.float(),
-                                    rtol=WINDOW_TOL[dt], atol=WINDOW_TOL[dt])
-            else:   # bf16 rounds each segment's sum before the combine
-                scale = window_aggregate_reference(
-                    x.abs(), agg=a, window=w, stride=s).float()
-                ok = bool(((out.float() - ref.float()).abs()
-                           <= SEGMENT_SUM_RTOL[dt] * scale).all())
-            require(ok, what)
+    for m in cal_ratios:
+        T, w, s = KernelCalibrator().window_shape(m)
+        seeded = torch.randn(T, 1, device=dev, generator=g_cal) * 10
+        for (name, x), dt in itertools.product(
+                (("ones", torch.ones(T, 1, device=dev)), ("randn", seeded)),
+                dtypes):
+            x = x.to(dtypes[dt])
+            for a in ("max", "min", "sum"):
+                check_segment(x, s, a, f"calibrator dry-run m={m} "
+                                       f"[{T},1]/{s} {name} {dt} {a}")
+            for a in ("max", "min", "sum", "mean"):
+                out = window_aggregate(x, agg=a, window=w, stride=s)
+                ref = window_aggregate_reference(x, agg=a, window=w, stride=s)
+                torch.cuda.synchronize()
+                what = (f"window_aggregate calibrator dry-run m={m} {name} "
+                        f"{dt} {a}: {out.flatten().tolist()} vs "
+                        f"{ref.flatten().tolist()}")
+                require(out.shape == ref.shape == ((T - w) // s + 1, 1)
+                        and out.dtype == ref.dtype, what)
+                if a in ("max", "min"):
+                    ok = torch.equal(bits(out), bits(ref))
+                elif dt == "float32" or name == "ones":
+                    ok = torch.allclose(out.float(), ref.float(),
+                                        rtol=WINDOW_TOL[dt],
+                                        atol=WINDOW_TOL[dt])
+                else:   # bf16 rounds each segment's sum before the combine
+                    scale = window_aggregate_reference(
+                        x.abs(), agg=a, window=w, stride=s).float()
+                    ok = bool(((out.float() - ref.float()).abs()
+                               <= SEGMENT_SUM_RTOL[dt] * scale).all())
+                require(ok, what)
 
     # NaN in each width, and through a split's partials
     for T, C, s in ((1000, 4, 100), (1000, 5, 100), (64_000, 128, 16_000)):
@@ -816,6 +995,7 @@ def main() -> None:
 
     # ---- the JITA-4DS path and the paper's §4 experiment -------------------------
     cal_launches = calibration_path()
+    scenario_path(cal_ratios)
     paper4()
 
     # ---- times ---------------------------------------------------------------------

@@ -12,9 +12,8 @@ origins — for shipping cost — and input-queue backlog — for
 backpressure) without touching the operator classes themselves.
 
 The adapter expects the pipeline to be instrumented with the
-conservation taps (``scenario.ledger.tap_pipeline``; the scenario layer
-has no counterpart in this package yet): the taps
-own the covered-record set and the per-record origin attribution the
+conservation taps (:func:`repro_torch.scenario.ledger.tap_pipeline`): the
+taps own the covered-record set and the per-record origin attribution the
 preview reads, and they record the canonical ``FireRec`` trace when
 :meth:`fire` finally runs.
 """

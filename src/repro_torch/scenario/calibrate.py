@@ -72,6 +72,12 @@ class Calibration:
     source: str                 # "flop-counter" | "analytic"
 
 
+def window_ratio(svc) -> int:
+    """The window/stride ratio m that a service's dry-run encodes: its
+    width over its slide, rounded, within [1, 8]."""
+    return max(1, min(8, round(svc.width_s / max(svc.slide_s, 1e-9))))
+
+
 class KernelCalibrator:
     """Measures (and caches) flops_per_record per operator family.
 
@@ -89,8 +95,8 @@ class KernelCalibrator:
 
     # ------------------------------------------------------------ frontends
     def __call__(self, svc) -> float:
-        m = max(1, min(8, round(svc.width_s / max(svc.slide_s, 1e-9))))
-        return self.measure(svc.operator, agg=svc.agg, m=m).flops_per_record
+        return self.measure(svc.operator, agg=svc.agg,
+                            m=window_ratio(svc)).flops_per_record
 
     def measure(self, operator: str, agg: str = "max",
                 m: int = 2) -> Calibration:
@@ -132,10 +138,13 @@ class KernelCalibrator:
     def _ones(self, *shape, dtype=torch.float32) -> torch.Tensor:
         return torch.ones(shape, dtype=dtype, device=self.device)
 
+    def window_shape(self, m: int) -> Tuple[int, int, int]:
+        """``(T, window, stride)`` of the window_agg dry-run for ratio m:
+        four windows of m strides, over [T, 1]."""
+        return 4 * m * self.stride, m * self.stride, self.stride
+
     def _dry_window_agg(self, agg: str, m: int, dtype: torch.dtype) -> int:
-        stride = self.stride
-        window = m * stride
-        T = 4 * window
+        T, window, stride = self.window_shape(m)
         window_aggregate(self._ones(T, 1, dtype=dtype), agg=agg,
                          window=window, stride=stride)
         return T

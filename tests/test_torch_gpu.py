@@ -29,6 +29,7 @@ from repro_torch.kernels.window_agg.kernel import (segment_reduce,
                                                    segment_reduce_plain)
 from repro_torch.pipeline import HybridExecutor
 from repro_torch.scenario import KernelCalibrator
+from repro_torch.scenario.calibrate import window_ratio
 
 torch.set_num_threads(2)
 
@@ -66,23 +67,43 @@ def test_kernel_matches_plain(cuda, T, C, w, s, agg, dtype):
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
 
 
+def _calibrator_ratios():
+    """The window/stride ratios m, by the calibrator's formula, of the
+    window_agg services of the recorded BENCH_placement.json scenarios
+    (which compile with a calibrator on the scenario path) and of Neubot
+    Q1 (MAX over 180 s every 60 s, m = 3)."""
+    import json
+    from pathlib import Path
+
+    from repro_torch.scenario import ScenarioSpec
+    bench = Path(__file__).resolve().parents[1] / "BENCH_placement.json"
+    services = [s for sc in json.loads(bench.read_text())["scenarios"].values()
+                for s in ScenarioSpec.from_dict(sc["spec"]).services
+                if s.operator == "window_agg"]
+    return sorted({3} | {window_ratio(s) for s in services})
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("m", _calibrator_ratios())
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("agg", ["max", "min", "sum", "mean"])
-def test_window_at_the_calibrators_shape(cuda, agg, dtype):
-    """The calibrator's dry-run (scenario/calibrate.py at stride 64, m = 3):
-    [768, 1] in each type it runs, window 192, on its ones and on seeded
-    values; bf16 sums of seeded values within SEGMENT_SUM_RTOL · Σ|x|,
-    since bf16 rounds each segment's sum before the combine."""
+def test_window_at_the_calibrators_shape(cuda, agg, dtype, m):
+    """The calibrator's dry-run (KernelCalibrator.window_shape at stride
+    64): [4·m·64, 1] in each type it runs, window m·64, at every ratio m
+    its services give, on its ones and on seeded values; bf16 sums of
+    seeded values within SEGMENT_SUM_RTOL · Σ|x|, since bf16 rounds each
+    segment's sum before the combine."""
     g = torch.Generator(device=cuda).manual_seed(1)
     dt = getattr(torch, dtype)
-    for seeded, x in ((False, torch.ones(768, 1, device=cuda)),
-                      (True, torch.randn(768, 1, device=cuda, generator=g)
+    T, w, s = KernelCalibrator(device=cuda).window_shape(m)
+    for seeded, x in ((False, torch.ones(T, 1, device=cuda)),
+                      (True, torch.randn(T, 1, device=cuda, generator=g)
                        * 10)):
         x = x.to(dt)
-        out = window_aggregate(x, agg=agg, window=192, stride=64)
-        ref = window_aggregate_reference(x, agg=agg, window=192, stride=64)
-        assert out.shape == ref.shape == (10, 1) and out.dtype == dt
+        out = window_aggregate(x, agg=agg, window=w, stride=s)
+        ref = window_aggregate_reference(x, agg=agg, window=w, stride=s)
+        assert out.shape == ref.shape == ((T - w) // s + 1, 1)
+        assert out.dtype == dt
         if agg in ("max", "min"):
             assert torch.equal(out, ref)
         elif dtype == "float32" or not seeded:
@@ -90,8 +111,8 @@ def test_window_at_the_calibrators_shape(cuda, agg, dtype):
             torch.testing.assert_close(out.float(), ref.float(), atol=tol,
                                        rtol=tol)
         else:
-            scale = window_aggregate_reference(x.abs(), agg=agg, window=192,
-                                               stride=64).float()
+            scale = window_aggregate_reference(x.abs(), agg=agg, window=w,
+                                               stride=s).float()
             err = (out.float() - ref.float()).abs()
             assert bool((err <= SEGMENT_SUM_RTOL[dtype] * scale).all())
 
@@ -396,3 +417,33 @@ def test_calibration_on_the_card_equals_the_cpu(cuda):
         assert a == b and a.source == "flop-counter"
     assert ([c.launches - n for c, n in zip(counters, before)]
             == [2, 2, 1, 1, 2, 1, 1])
+
+
+@pytest.mark.gpu
+def test_calibrated_scenario_compile_on_the_card(cuda):
+    """heavy_analytics of BENCH_placement.json compiled with
+    KernelCalibrator() on the card: the compile launches window_agg (clean,
+    trend) and both flash kernels (classify), its profiles equal those of
+    KernelCalibrator(device="cpu"), and the recorded searched plan runs to
+    the same VoS, ledger and energy on both engines."""
+    import json
+    from pathlib import Path
+
+    from repro_torch.placement import PlacementPlan
+    from repro_torch.scenario import ScenarioSpec
+
+    bench = Path(__file__).resolve().parents[1] / "BENCH_placement.json"
+    sc = json.loads(bench.read_text())["scenarios"]["heavy_analytics"]
+    spec = ScenarioSpec.from_dict(sc["spec"])
+    counters = (segment_reduce, flash_attention_wgmma, flash_attention_3xtf32)
+    before = [c.launches for c in counters]
+    gpu = spec.compile(calibrator=KernelCalibrator())
+    assert all(c.launches > n for c, n in zip(counters, before))
+    cpu = spec.compile(calibrator=KernelCalibrator(device="cpu"))
+    assert gpu.profiles == cpu.profiles
+    assert gpu.profiles["classify"].flops_per_record == 65_792.0
+    plan = PlacementPlan.from_dict(sc["search"]["assignments"])
+    a, b = gpu.run_plan(plan), cpu.run_plan(plan)
+    assert a.feasible and a.ledger.conserved()
+    assert (a.vos, a.ledger.totals(), a.energy_total_j) == (
+        b.vos, b.ledger.totals(), b.energy_total_j)
