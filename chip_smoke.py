@@ -59,6 +59,50 @@ JSON line; any failure exits non-zero:
           The calibrate and scenario lines carry ``gc``: the collections
           of each generation inside the phase and the seconds spent in
           them
+  search  placement search and control through their entry points: the
+          screened ``search_placement`` over the recorded scenarios of
+          BENCH_search.json (plan and VoS as recorded); heavy_analytics
+          compiled with ``KernelCalibrator()`` (the counters, set to 0
+          just before, show window_agg and both flash kernels launched)
+          and searched to the plan of the CPU's calibrator, then searched
+          again through ``ParallelEvaluator(workers=2)``, whose workers
+          fork after this process made its CUDA context: the serial plan
+          and VoS bit for bit, the pool used (faulthandler turns a hung
+          pool into a traceback); flash_crowd under ``OnlineController``
+          and crash_during_burst under ``ChaosController`` from their
+          recorded specs, VoS within 1e-3 and fires as recorded; host
+          seconds of each
+  fluid   the batched fluid engine on the card at bench_robust.py's
+          throughput shape (heavy_analytics, 257 realizations × 32
+          plans): a shape's first call runs op by op, its second captures
+          a CUDA graph that later calls (``jit=True``) replay, bit-equal
+          to the op-by-op run, both within FLUID_RTOL of the CPU; the
+          first call, the capturing call, the op-by-op and the replayed
+          call (host clock, median of 5 batches), the CPU's call, the
+          stepper alone by CUDA events, evaluations per second, peak
+          memory; ``robust_search`` over that ensemble, with its one
+          fluid call timed as the search pays it beside the CPU's call on
+          the same candidates (same cvar ranking); then BENCH_robust.json's
+          agreement block on the card (fluid VoS within 1e-3 of the
+          recorded). The stepper's kernels and launch calls per call
+          (torch.profiler) print last, on a ``fluid_launches`` line
+          after ``times``, and a ``profiler_probe`` line says whether a
+          trace after it still saw device time. ORDER: a trace of the
+          stepper (about 12,000 kernels) once left torch.profiler blind
+          to device time in every later trace, so no phase that reads
+          ``kernel_device_ms`` or ``launches_per_call`` may follow
+          ``fluid_launches``
+  region  BENCH_fleet.json's generated 500-site fleet from its recorded
+          generator fields: the spec's sha256 as recorded (the record
+          predates the spec's null ``chaos`` field, so it is taken
+          without it) and as the JAX package gives it today, the drive,
+          ``region_search`` to the recorded VoS serially and through a
+          forked ``ParallelEvaluator``, bit-identical; then the search
+          with a fluid ensemble (n=64) of its finalists on the card, on
+          the stepper's hierarchical branch, its one fluid call op by op
+          and timed as the search pays it: within FLUID_RTOL of the CPU's
+          call on the same finalists and ranked alike under "cvar"; a
+          second call of that shape captures a graph, bit-equal
   paper4  the paper's §4 experiment (examples/vos_scheduler_demo.py) on the
           port's core: six heuristics, 120 jobs each, a 70% power cap; the
           VoS must equal the JAX package's, recorded below
@@ -543,6 +587,513 @@ def scenario_path(checked_ratios) -> None:
          gc=GC_CLOCK.since(gc0))
 
 
+# bench_online.py's priors and controller arguments for flash_crowd
+# (OnlineScenario's chips_options, window, switch_margin, seed) and
+# bench_chaos.py's for crash_during_burst, copied: benchmarks/ imports the
+# JAX package
+TIDE_PRIORS = {"agg": 8.0, "pctl": 8.0, "trend": 0.02}
+CONTROLLERS = {
+    "flash_crowd": ("BENCH_online.json", "online", "OnlineController",
+                    dict(chips_options=(4, 8), window=1, switch_margin=0.02,
+                         seed=0, prior_rates=TIDE_PRIORS)),
+    "crash_during_burst": ("BENCH_chaos.json", "chaos", "ChaosController",
+                           dict(chips_options=(4,), window=1,
+                                switch_margin=0.02, seed=0,
+                                prior_rates={"agg": 8.0}))}
+HANG_S = 600            # faulthandler's deadline around a forked search
+FLUID_N, FLUID_M = 256, 32       # bench_robust.py's throughput shape
+FLEET_ENSEMBLE_N = 64
+# sha256 of json.dumps(spec.to_dict(), sort_keys=True) for BENCH_fleet.json's
+# generated fleet, as the JAX package gives it (bench_fleet.py's digest)
+FLEET_SPEC_SHA256 = ("4fcebffbb5576cd7be3609d0dad5f779"
+                     "fb131aa7281a65fa60895f5d93eb1a37")
+# the fluid stepper on the card against the same call on the CPU: cuBLAS
+# and the card's exp round differently in the last bits, so element for
+# element |card - cpu| <= FLUID_RTOL * max(1, |cpu|)
+FLUID_RTOL = 1e-5
+FLUID_FIELDS = ("vos", "vos_service", "vos_t", "lat_mean", "drop_frac")
+
+
+def fluid_err(card, cpu, what) -> float:
+    """The largest |card - cpu| / max(1, |cpu|) over the fluid outputs;
+    fails past FLUID_RTOL or where feasibility differs."""
+    import numpy as np
+    require((card.feasible == cpu.feasible).all(), f"{what}: feasibility")
+    worst = 0.0
+    for k in FLUID_FIELDS:
+        a, b = getattr(card, k), getattr(cpu, k)
+        fin = np.isfinite(b)
+        require(a.shape == b.shape and (np.isfinite(a) == fin).all(),
+                f"{what}: {k} shape or infinities differ")
+        rel = np.abs(a[fin] - b[fin]) / np.maximum(1.0, np.abs(b[fin]))
+        worst = max(worst, float(rel.max()) if rel.size else 0.0)
+    require(worst <= FLUID_RTOL, f"{what}: card vs CPU {worst} > {FLUID_RTOL}")
+    return worst
+
+
+def same_fluid(a, b) -> bool:
+    import numpy as np
+    return all(np.array_equal(getattr(a, k), getattr(b, k))
+               for k in FLUID_FIELDS)
+
+
+def host_median(fn, calls=3, batches=5, warm=2) -> dict:
+    """Host seconds per call: the median of ``batches`` means of ``calls``
+    calls after ``warm`` warm-ups, and the batches' spread."""
+    for _ in range(warm):
+        fn()
+    s = []
+    for _ in range(batches):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        s.append((time.perf_counter() - t0) / calls)
+    s.sort()
+    return {"s": s[len(s) // 2], "batches": s, "spread": s[-1] - s[0]}
+
+
+def launches_per_call(fn, n=3) -> dict:
+    """CUDA kernels per call of fn, and the runtime's launch calls by name
+    (one ``cudaGraphLaunch`` per graph replay), from torch.profiler over n
+    calls after one warm-up."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kernels = sum(1 for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and "memcpy" not in e.name.lower()
+                  and "memset" not in e.name.lower())
+    calls = {}
+    for e in prof.key_averages():
+        if re.match(r"cu(da)?\w*Launch", e.key):
+            calls[e.key] = e.count / n
+    return {"kernels": kernels / n, "launch_calls": calls}
+
+
+def search_path(dev) -> None:
+    """(a) The screened search of bench_search_perf.py over the recorded
+    scenarios of BENCH_search.json (all but big_fleet), compiled without a
+    calibrator: plan and VoS as recorded. (b) heavy_analytics compiled with
+    ``KernelCalibrator()`` on the card, the counters set to 0 just before:
+    window_agg and both flash kernels launch, and the search picks the
+    plan the CPU's calibrator gives. (c) The same search through
+    ``ParallelEvaluator(workers=2)``, forked long after this process made
+    its CUDA context: the serial plan and VoS bit for bit, the pool used
+    and not broken. (d) flash_crowd under ``OnlineController`` and
+    crash_during_burst under ``ChaosController`` from their recorded specs:
+    VoS within 1e-3 and fires as recorded."""
+    import faulthandler
+
+    from repro_torch import chaos, online
+    from repro_torch.placement import (Evaluator, ParallelEvaluator,
+                                       search_placement)
+    from repro_torch.scenario import KernelCalibrator, ScenarioSpec
+
+    placement = json.loads((ROOT / "BENCH_placement.json").read_text())
+    recorded = json.loads((ROOT / "BENCH_search.json").read_text())
+
+    def search(engine, sc, evaluator=None):
+        sites = tuple(engine.info().fleet.site_names)
+        ev = evaluator or Evaluator(engine)
+        t0 = time.perf_counter()
+        sr = search_placement(
+            engine, chips_options=tuple(sc["search"]["chips_options"]),
+            dvfs_options=(1.0, 0.7), evaluator=ev, edge_sites=sites)
+        return sr, ev, time.perf_counter() - t0
+
+    rows = {}
+    for name, rec in recorded["scenarios"].items():
+        if name == "big_fleet":
+            continue
+        sc = placement["scenarios"][name]
+        engine = ScenarioSpec.from_dict(sc["spec"]).compile()
+        t0 = time.perf_counter()
+        engine._ensure_driven()
+        drive_s = time.perf_counter() - t0
+        sr, ev, wall = search(engine, sc)
+        want = rec["new"]
+        require(sr.plan.label == want["plan"]
+                and abs(sr.result.vos - want["vos"]) <= 1e-3,
+                f"search {name}: {sr.plan.label} {sr.result.vos!r}, recorded "
+                f"{want['plan']} {want['vos']}")
+        rows[name] = {"plan": sr.plan.label, "vos": sr.result.vos,
+                      "recorded_vos": want["vos"], "drive_seconds": drive_s,
+                      "search_seconds": wall, "evaluations": sr.evaluations,
+                      "hits": ev.hits, "misses": ev.misses}
+
+    sc = placement["scenarios"]["heavy_analytics"]
+    spec = ScenarioSpec.from_dict(sc["spec"])
+    counters = zeroed_counters()
+    t0 = time.perf_counter()
+    card = spec.compile(calibrator=KernelCalibrator())
+    compile_s = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    require(all(launches[k] > 0 for k in ("window_agg",
+                                           "flash_attention_wgmma",
+                                           "flash_attention_3xtf32")),
+            f"the calibrated compile missed a kernel: {launches}")
+    a, ev_a, wall_a = search(card, sc)
+    b, _, _ = search(spec.compile(calibrator=KernelCalibrator(
+        device="cpu")), sc)
+    require((a.plan.label, a.result.vos) == (b.plan.label, b.result.vos),
+            f"calibrated search: card {a.plan.label} {a.result.vos!r}, CPU "
+            f"{b.plan.label} {b.result.vos!r}")
+    faulthandler.dump_traceback_later(HANG_S, exit=True)
+    try:
+        with ParallelEvaluator(card, workers=2) as pev:
+            p, _, wall_p = search(card, sc, evaluator=pev)
+            pool = pev.stats()
+            broken = pev._pool_broken
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+    require(pool["parallel_batches"] >= 1 and not broken,
+            f"the forked pool was not used: {pool}, broken {broken}")
+    require((p.plan.key(), p.result.vos, pev.history)
+            == (a.plan.key(), a.result.vos, ev_a.history),
+            f"forked search {p.plan.label} {p.result.vos!r} != serial "
+            f"{a.plan.label} {a.result.vos!r}")
+    calibrated = {"compile_seconds": compile_s, "launches": launches,
+                  "plan": a.plan.label, "vos": a.result.vos,
+                  "search_seconds": wall_a, "parallel": {
+                      "search_seconds": wall_p, **pool}}
+
+    controlled = {}
+    for name, (bench, key, ctrl, kw) in CONTROLLERS.items():
+        rec = json.loads((ROOT / bench).read_text())["scenarios"][name]
+        t0 = time.perf_counter()
+        engine = ScenarioSpec.from_dict(rec["spec"]).compile()
+        cls = getattr(chaos if key == "chaos" else online, ctrl)
+        r = engine.run(cls(**kw))
+        wall = time.perf_counter() - t0
+        got = r.summary()
+        require(abs(r.vos - rec[key]["vos"]) <= 1e-3
+                and got["fires"] == rec[key]["fires"],
+                f"{name} under {ctrl}: VoS {r.vos!r} fires {got['fires']}, "
+                f"recorded {rec[key]['vos']} {rec[key]['fires']}")
+        require(r.ledger.conserved(), f"{name}: ledger not conserved")
+        controlled[name] = {"controller": ctrl, "vos": r.vos,
+                            "recorded_vos": rec[key]["vos"],
+                            "fires": got["fires"], "seconds": wall,
+                            "recorded_wall_s": rec["wall_s"]}
+    emit("search", screened=rows, calibrated=calibrated,
+         controllers=controlled)
+
+
+def fluid_path(dev, smi0):
+    """bench_robust.py's throughput shape: heavy_analytics, 256 sampled
+    realizations and the nominal one × the first 32 plans of
+    ``enumerate_plans`` on the card. The shape's first call runs op by op
+    and its second captures a CUDA graph of the time loop; the replay
+    (``jit=True``) and ``jit=False`` (op by op) must be equal bit for bit
+    and within FLUID_RTOL of the same call on the CPU. Then
+    ``robust_search`` over the same ensemble: its one fluid call timed
+    as the search makes it, its scores within FLUID_RTOL of the CPU's on
+    the same candidates and ranked alike; then BENCH_robust.json's
+    agreement block on the card. Returns the fluid engine and the
+    stepper's inputs, for ``fluid_launches``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.fluid import ScenarioEnsemble, rank_plans
+    from repro_torch.placement import PlacementPlan, robust_search
+    from repro_torch.placement.plan import enumerate_plans
+    from repro_torch.scenario import ScenarioSpec
+
+    require(not torch.backends.cuda.matmul.allow_tf32,
+            "fp32 products would run in TF32")
+    placement = json.loads((ROOT / "BENCH_placement.json").read_text())
+    spec = ScenarioSpec.from_dict(
+        placement["scenarios"]["heavy_analytics"]["spec"])
+    engine = spec.compile()
+    names = list(engine.order)
+    sites = tuple(engine.info().fleet.site_names)
+    plans = list(enumerate_plans(names, (4, 8, 16), (1.0,),
+                                 edge_sites=sites))[:FLUID_M]
+    t0 = time.perf_counter()
+    ens = ScenarioEnsemble.from_spec(spec, n=FLUID_N, engine=engine)
+    setup_s = time.perf_counter() - t0
+    fl = ens.fluid
+    require(fl.device == dev and not fl._hier, f"fluid on {fl.device}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    first = ens.evaluate(plans)
+    first_s = time.perf_counter() - t0
+    require(fl.graph_captures == 0, "a shape's first call captured a graph")
+    t0 = time.perf_counter()
+    captured = ens.evaluate(plans)
+    capture_s = time.perf_counter() - t0
+    require(fl.graph_captures == 1, f"graphs captured {fl.graph_captures}")
+    replayed = ens.evaluate(plans)
+    eager = ens.evaluate(plans, jit=False)
+    require(same_fluid(first, eager) and same_fluid(captured, eager)
+            and same_fluid(replayed, eager),
+            "graph replay != op-by-op run on the card")
+    cpu_ens = ScenarioEnsemble(engine.fluid_engine(device="cpu"), ens.specs,
+                               ens.realizations)
+    t0 = time.perf_counter()
+    cpu = cpu_ens.evaluate(plans)
+    cpu_first_s = time.perf_counter() - t0
+    err = fluid_err(eager, cpu, "heavy_analytics 257x32")
+    N, M = eager.vos.shape
+    require((N, M) == (FLUID_N + 1, FLUID_M) and fl.T > 1,
+            f"shape {eager.vos.shape}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    eager_t = host_median(lambda: ens.evaluate(plans, jit=False))
+    graph_t = host_median(lambda: ens.evaluate(plans))
+    cpu_t = host_median(lambda: cpu_ens.evaluate(plans), calls=1, batches=3,
+                        warm=1)
+
+    # robust_search's own fluid call: one evaluate of a shape this engine
+    # has not seen, so op by op; the CPU scores the same candidates
+    rec = RecordingEnsemble(ens)
+    calls0, repeats0 = fl.evaluations, fl.repeated_shapes
+    t0 = time.perf_counter()
+    rs = robust_search(engine, rec, risk="cvar", chips_options=(4, 8, 16),
+                       edge_sites=sites)
+    robust_s = time.perf_counter() - t0
+    (cands, kw, rs_fr, rs_fluid_s), = rec.calls
+    rs_repeats = fl.repeated_shapes - repeats0
+    require(fl.evaluations - calls0 == 1 and rs_repeats == 0,
+            f"robust_search: {fl.evaluations - calls0} fluid calls, "
+            f"{rs_repeats} of a shape seen before")
+    t0 = time.perf_counter()
+    rs_cpu = cpu_ens.evaluate(cands, **kw)
+    rs_cpu_s = time.perf_counter() - t0
+    rs_err = fluid_err(rs_fr, rs_cpu, "robust_search candidates")
+    require((rank_plans(rs_fr.vos, "cvar")
+             == rank_plans(rs_cpu.vos, "cvar")).all(),
+            "robust_search: the card ranks its candidates otherwise")
+    t0 = time.perf_counter()
+    ens.evaluate(cands, **kw)
+    rs_capture_s = time.perf_counter() - t0
+    robust_tier = {"plan": rs.plan.label, "vos": rs.result.vos,
+              "search_seconds": robust_s,
+              "candidates": len(cands), "fluid_calls": 1,
+              "fluid_calls_repeating_a_shape": rs_repeats,
+              "fluid_call_seconds": rs_fluid_s,
+              "cpu_call_seconds": rs_cpu_s,
+              "second_call_with_capture_seconds": rs_capture_s,
+              "max_abs_rel_err_vs_cpu": rs_err}
+
+    # the stepper alone, on the card's clock
+    Z = fl.lower_plans(plans)
+    Z.pop("feasible")
+    P = {k: torch.as_tensor(v).to(dev, torch.float32) for k, v in Z.items()}
+    R = {k: torch.as_tensor(v).to(dev, torch.float32)
+         for k, v in ens.realizations.items()}
+
+    def stepper_ms(fn):
+        fn()
+        ms = []
+        for _ in range(5):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(3):
+                fn()
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b) / 3)
+        ms.sort()
+        return {"ms": ms[2], "batches": ms}
+
+    step_eager = stepper_ms(lambda: fl._run(P, R))
+    key = fl._shape_key(P, R)
+    step_graph = stepper_ms(lambda: fl._replay(key, P, R))
+
+    # BENCH_robust.json's agreement block on the card
+    robust = json.loads((ROOT / "BENCH_robust.json").read_text())
+    rows = robust["blocks"]["agreement"]["plans"]
+    agreement = []
+    for name, sc in placement["scenarios"].items():
+        eng = ScenarioSpec.from_dict(sc["spec"]).compile()
+        names = list(eng.order)
+        anchors = [PlacementPlan.all_edge(names, site=s)
+                   for s in eng.info().fleet.site_names]
+        anchors += [PlacementPlan.all_dc(names, chips=c)
+                    for c in sc["search"]["chips_options"]]
+        fr = eng.fluid_engine().evaluate(anchors)
+        want = [r for r in rows if r["scenario"] == name]
+        require([p.label for p in anchors] == [r["plan"] for r in want],
+                f"agreement {name}: plans {[p.label for p in anchors]}")
+        for m, (plan, row) in enumerate(zip(anchors, want)):
+            v = float(fr.vos[0, m])
+            ok = (v == float("-inf") if row["fluid_vos"] is None
+                  else abs(v - row["fluid_vos"]) <= 1e-3)
+            require(ok, f"agreement {name} {plan.label}: fluid VoS {v!r}, "
+                        f"recorded {row['fluid_vos']}")
+            agreement.append({"scenario": name, "plan": plan.label,
+                              "fluid_vos": v if np.isfinite(v) else None,
+                              "recorded": row["fluid_vos"]})
+    emit("fluid", scenario="heavy_analytics", realizations=N, plans=M,
+         bins=fl.T, services=len(fl.order), setup_seconds=setup_s,
+         first_call_seconds=first_s, capture_call_seconds=capture_s,
+         cpu_first_call_seconds=cpu_first_s, eager_call=eager_t,
+         graph_call=graph_t, cpu_call=cpu_t, robust_search=robust_tier,
+         stepper_eager_ms=step_eager,
+         stepper_graph_ms=step_graph,
+         evaluations_per_second=N * M / graph_t["s"],
+         max_abs_rel_err_vs_cpu=err, tolerance=FLUID_RTOL,
+         max_memory_allocated=peak, agreement=agreement, nvidia_smi=smi0)
+    return fl, P, R
+
+
+class RecordingEnsemble:
+    """A ScenarioEnsemble that keeps the plans each evaluate was given and
+    what it returned."""
+
+    def __init__(self, ens):
+        self.ens, self.calls = ens, []
+
+    @property
+    def n_realizations(self):
+        return self.ens.n_realizations
+
+    @property
+    def fluid(self):
+        return self.ens.fluid
+
+    def evaluate(self, plans, **kw):
+        t0 = time.perf_counter()
+        out = self.ens.evaluate(plans, **kw)
+        self.calls.append((list(plans), kw, out, time.perf_counter() - t0))
+        return out
+
+
+def region_path(dev, smi0) -> None:
+    """The repo's largest deployment, BENCH_fleet.json's generated fleet
+    (500 sites, 8 regions, 24 services), from its recorded generator
+    fields: the spec's sha256 as recorded (without its null chaos
+    field, which postdates the record); ``region_search`` to VoS
+    2107.735 (within 1e-3) serially and through a forked
+    ``ParallelEvaluator``, bit-identical; then the search with a fluid
+    ensemble of n=64 on the card (the hierarchical branch), whose one
+    fluid call runs op by op: the finalists' scores within FLUID_RTOL of
+    the CPU's on the same finalists and ranked alike under "cvar"; then
+    a second call of that shape, which captures a CUDA graph, bit-equal
+    to the first."""
+    import faulthandler
+    import hashlib
+
+    import torch
+
+    from repro_torch.fluid import ScenarioEnsemble, rank_plans
+    from repro_torch.placement import ParallelEvaluator
+    from repro_torch.region import FleetGenSpec, generate_fleet, region_search
+
+    rec = json.loads((ROOT / "BENCH_fleet.json").read_text())
+    gen = rec["generated"]
+    fields = {f.name for f in dataclasses.fields(FleetGenSpec)}
+    t0 = time.perf_counter()
+    spec = generate_fleet(FleetGenSpec(**{k: v for k, v in gen.items()
+                                          if k in fields}))
+    sha = lambda d: hashlib.sha256(json.dumps(d, sort_keys=True)
+                                   .encode()).hexdigest()
+    d = spec.to_dict()
+    digest = sha(d)
+    # the recorded digest predates the spec's ``chaos`` field (null here):
+    # without it the spec must hash as recorded, and with it as the JAX
+    # package's spec of today does
+    pre_chaos = sha({k: v for k, v in d.items() if k != "chaos"})
+    require(d["chaos"] is None and pre_chaos == gen["spec_sha256"]
+            and digest == FLEET_SPEC_SHA256,
+            f"fleet spec sha256 {digest} (without chaos {pre_chaos}), "
+            f"recorded {gen['spec_sha256']}")
+    require((len(spec.sites), len(spec.services)) == (gen["sites"],
+                                                       gen["services"]),
+            f"fleet of {len(spec.sites)} sites, {len(spec.services)} services")
+    cs = spec.compile()
+    compile_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cs._ensure_driven()
+    drive_s = time.perf_counter() - t0
+    kw = dict(chips_options=(4, 8), seed=0, sweeps=2)
+    t0 = time.perf_counter()
+    sr = region_search(cs, **kw)
+    search_s = time.perf_counter() - t0
+    require(abs(sr.result.vos - rec["search"]["vos"]) <= 1e-3,
+            f"region_search VoS {sr.result.vos!r} != {rec['search']['vos']}")
+    faulthandler.dump_traceback_later(HANG_S, exit=True)
+    try:
+        t0 = time.perf_counter()
+        with ParallelEvaluator(cs, workers=2, spec=spec) as pev:
+            sp = region_search(cs, evaluator=pev, **kw)
+            pool, broken = pev.stats(), pev._pool_broken
+        par_s = time.perf_counter() - t0
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+    require(pool["parallel_batches"] >= 1 and not broken,
+            f"the forked pool was not used: {pool}, broken {broken}")
+    require((sp.plan.key(), sp.result.vos) == (sr.plan.key(), sr.result.vos),
+            f"parallel {sp.plan.label} {sp.result.vos!r} != serial "
+            f"{sr.plan.label} {sr.result.vos!r}")
+
+    t0 = time.perf_counter()
+    ens = ScenarioEnsemble.from_spec(spec, n=FLEET_ENSEMBLE_N, engine=cs)
+    ens_s = time.perf_counter() - t0
+    require(ens.fluid._hier and ens.fluid.device == dev,
+            f"fleet fluid: hierarchical {ens.fluid._hier} on {ens.fluid.device}")
+    card_rec = RecordingEnsemble(ens)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    a = region_search(cs, ensemble=card_rec, risk="cvar", **kw)
+    card_search_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    # the search's one fluid call is the shape's first: op by op
+    (cands, ckw, card_fr, first_s), = card_rec.calls
+    fl = ens.fluid
+    require((fl.evaluations, fl.repeated_shapes, fl.graph_captures)
+            == (1, 0, 0), f"region_search's fluid calls: {fl.evaluations}, "
+            f"{fl.repeated_shapes} repeating a shape, {fl.graph_captures} "
+            "captured")
+    # the CPU scores the same finalists; the same order under "cvar" means
+    # the same finalists reach the DES tier, so the same plan
+    cpu_ens = ScenarioEnsemble(cs.fluid_engine(device="cpu"), ens.specs,
+                               ens.realizations)
+    t0 = time.perf_counter()
+    cpu_fr = cpu_ens.evaluate(cands, **ckw)
+    cpu_s = time.perf_counter() - t0
+    err = fluid_err(card_fr, cpu_fr, "fleet finalists")
+    require((rank_plans(card_fr.vos, "cvar")
+             == rank_plans(cpu_fr.vos, "cvar")).all(),
+            "cvar ranks the finalists otherwise on the card")
+    t0 = time.perf_counter()
+    captured = ens.evaluate(cands, **ckw)
+    capture_s = time.perf_counter() - t0
+    require(fl.graph_captures == 1 and same_fluid(captured, card_fr),
+            "fleet: graph replay != op-by-op run")
+    replay_t = host_median(lambda: ens.evaluate(cands, **ckw), calls=1,
+                           batches=3, warm=0)
+    eager_t = host_median(lambda: ens.evaluate(cands, jit=False, **ckw),
+                          calls=1, batches=3, warm=0)
+    emit("region", sites=len(spec.sites), regions=gen["regions"],
+         services=len(spec.services), spec_sha256=digest,
+         spec_sha256_without_chaos=pre_chaos,
+         compile_seconds=compile_s, drive_seconds=drive_s,
+         recorded_drive_wall_s=rec["drive_wall_s"], search_seconds=search_s,
+         recorded_search_wall_s=rec["search"]["wall_s"], plan=sr.plan.label,
+         vos=sr.result.vos, parallel={"search_seconds": par_s, **pool},
+         fluid={"realizations": card_fr.vos.shape[0],
+                "candidates": len(cands), "bins": ens.fluid.T,
+                "sites": len(ens.fluid.site_names),
+                "regions": ens.fluid.n_regions,
+                "ensemble_setup_seconds": ens_s,
+                "search_seconds": card_search_s,
+                "fluid_calls": 1, "fluid_calls_repeating_a_shape": 0,
+                "first_call_seconds": first_s, "cpu_call_seconds": cpu_s,
+                "second_call_with_capture_seconds": capture_s,
+                "graph_call": replay_t, "eager_call": eager_t,
+                "max_abs_rel_err_vs_cpu": err, "tolerance": FLUID_RTOL,
+                "cvar_plan": a.plan.label, "cvar_vos": a.result.vos,
+                "max_memory_allocated": peak}, nvidia_smi=smi0)
+
+
 def paper4() -> None:
     """examples/vos_scheduler_demo.py on the port's core."""
     from repro_torch import hardware as hw
@@ -996,6 +1547,9 @@ def main() -> None:
     # ---- the JITA-4DS path and the paper's §4 experiment -------------------------
     cal_launches = calibration_path()
     scenario_path(cal_ratios)
+    search_path(dev)
+    fluid = fluid_path(dev, smi0)
+    region_path(dev, smi0)
     paper4()
 
     # ---- times ---------------------------------------------------------------------
@@ -1048,6 +1602,22 @@ def main() -> None:
                   for r in runs if "seconds" in r],
          max_memory_allocated=peak, nvidia_smi=smi0)
     timed_full = time_attention_and_ssd(dev, gen, cuda_ms, smi0)
+    # the fluid stepper's kernels per call, traced last: after a trace of
+    # the stepper, torch.profiler saw no device time in later traces. One
+    # call each, then a probe trace of one small kernel: whether the
+    # profiler still sees device time after a trace of this length
+    fl, P, R = fluid
+    key = fl._shape_key(P, R)
+    emit("fluid_launches",
+         eager=launches_per_call(lambda: fl._run(P, R), n=1),
+         graph=launches_per_call(lambda: fl._replay(key, P, R), n=1))
+    ones = torch.ones(1 << 20, device=dev)
+    try:
+        probe = kernel_device_ms(lambda: ones.sum())
+    except SmokeFailure:
+        probe = {}
+    emit("profiler_probe", after="fluid_launches",
+         device_time_seen=bool(probe), kernels=probe)
 
     # ---- result ----------------------------------------------------------------------
     # window_agg at the Q2 fold and the fleet shape (sum), its launches on

@@ -14,9 +14,15 @@ neither ``jax`` nor ``repro``. What is ported so far:
   grid, the heuristics, the discrete-event ``Simulator``) with the cost
   modules it needs (``hardware``, ``configs``, ``roofline``, ``utils``),
   carried as they are;
-- ``scenario``: service profiles, the ``KernelCalibrator`` that measures
+- ``scenario``: the declarative ``ScenarioSpec`` and the engine it
+  compiles into, service profiles, the ``KernelCalibrator`` that measures
   an operator's flops per record from a dry-run on the card, and the
   cost cells that price them in the ``Simulator``;
+- ``placement``, ``region``, ``online``, ``chaos``: plans, the placement
+  and region searches (with a forked exact-tier pool), and the online and
+  chaos controllers, carried as they are;
+- ``fluid``: the batched fluid engine, whose time-stepper scores drift
+  realizations × plans at once on the card;
 - ``convert``: carries the JAX package's parameters (as numpy) across.
 
 Entry points run on the CUDA card unless the caller passes

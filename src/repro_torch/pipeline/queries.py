@@ -71,8 +71,8 @@ class HybridExecutor:
                                "window exceeds edge compute/RAM — VDC JIT")
 
     def run_window(self, values, agg: str) -> float:
-        """Aggregate one window (``max``, ``min``, ``sum``, ``mean``; the
-        edge path also takes ``count``). ``values`` is a 1-D numpy array
+        """Aggregate one window (``max``, ``min``, ``sum``, ``mean`` or
+        ``count``; an offloaded ``count`` launches nothing). ``values`` is a 1-D numpy array
         or tensor; a float32 tensor already on the device is used as it
         is."""
         d = self.decide(len(values))
@@ -82,6 +82,12 @@ class HybridExecutor:
                 values = values.cpu().numpy()
             return aggregate(values, agg)
         self.offloads += 1
+        if agg == "count":
+            # a count needs no values, so nothing crosses to the device
+            # and no kernel runs: the edge path's answer, len(values).
+            # (The JAX package has no count kernel: its offloaded count
+            # raises KeyError looking up INIT["count"].)
+            return float(len(values))
         # VDC path: fold the 1-D range into 128 columns so the segment
         # kernel reduces rows in parallel, then combine the 128 partials.
         # The values cross to the device once; the fold's padding is

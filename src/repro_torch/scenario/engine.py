@@ -36,7 +36,8 @@ contended shared uplink). Record conservation is tracked per service
 Everything here is host code (stdlib and numpy) and is carried with the
 JAX package's arithmetic in its order, so a run's VoS, energy and ledger
 equal the reference's float for float. The fluid lowering
-(``fluid_engine``) waits for the port of the ``fluid`` package.
+(``fluid_engine``) is the one tensor path; it runs on the CUDA card
+unless its caller asks for the CPU.
 """
 from __future__ import annotations
 
@@ -372,6 +373,7 @@ class ScenarioEngine:
         self._true_rates: Optional[List[Dict[str, float]]] = None
         self._ledger_static: Optional[Dict[str, Dict]] = None
         self._screen = None
+        self._fluid: Dict = {}
 
     @property
     def all_sites(self) -> Tuple[str, ...]:
@@ -409,15 +411,31 @@ class ScenarioEngine:
     def screening_model(self):
         """Cached tier-1 vectorized plan screener over this engine's
         (placement-independent) fire trace — see
-        :class:`repro_torch.scenario.screen.ScreeningModel`. The JAX
-        package's screened search (``repro.placement.search.screened_search``,
-        not ported yet) uses it to score whole candidate batches in one
-        numpy pass and reserves the exact DES replay for the top-K
-        survivors."""
+        :class:`repro_torch.scenario.screen.ScreeningModel`. The screened
+        search (``repro_torch.placement.search.screened_search``) uses it
+        to score whole candidate batches in one numpy pass and reserves
+        the exact DES replay for the top-K survivors."""
         if self._screen is None:
             from repro_torch.scenario.screen import ScreeningModel
             self._screen = ScreeningModel(self)
         return self._screen
+
+    def fluid_engine(self, dt_s=None, device=None):
+        """Cached fluid lowering of this engine, one per ``(dt_s,
+        device)`` — see :class:`repro_torch.fluid.engine.FluidEngine`;
+        ``device=None`` is the CUDA card. Drift ensembles
+        (:class:`repro_torch.fluid.ensemble.ScenarioEnsemble`) built on
+        this engine route through here, so an epoch loop that re-ranks
+        finalists every epoch reuses the lowered trace arrays and the
+        captured CUDA graphs instead of re-lowering per ensemble."""
+        from repro_torch.device import resolve_device
+        key = (dt_s, resolve_device(device))
+        fl = self._fluid.get(key)
+        if fl is None:
+            from repro_torch.fluid.engine import FluidEngine
+            fl = self._fluid[key] = FluidEngine.compile(
+                self, dt_s=dt_s, device=key[1])
+        return fl
 
     def info(self) -> BridgeInfo:
         return BridgeInfo(topology=self.topology, profiles=self.profiles,

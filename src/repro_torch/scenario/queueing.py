@@ -2,7 +2,7 @@
 
 One curve, three callers: the online controller's scalar
 ``ForecastModel``, the tier-1 vectorized ``ScreeningModel`` (numpy), and
-the batched fluid ensemble engine (``fluid``, torch; not ported yet).
+the batched fluid ensemble engine (``repro_torch.fluid``, torch).
 The knee says: a work-conserving server fed deterministic slide-aligned
 arrivals is stable below saturation, inflates mildly approaching it, and
 cliffs at it (``NEVER_S`` — the backlog diverges and fires effectively

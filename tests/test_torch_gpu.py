@@ -447,3 +447,110 @@ def test_calibrated_scenario_compile_on_the_card(cuda):
     assert a.feasible and a.ledger.conserved()
     assert (a.vos, a.ledger.totals(), a.energy_total_j) == (
         b.vos, b.ledger.totals(), b.energy_total_j)
+
+
+# ------------------------------------------------------- the fluid stepper
+# The fluid engine on the card against the same call on the CPU: cuBLAS
+# and the card's exp round differently from the host's in the last bits,
+# so element for element |card - cpu| <= FLUID_RTOL * max(1, |cpu|).
+FLUID_RTOL = 1e-5
+FLUID_FIELDS = ("vos", "vos_service", "vos_t", "lat_mean", "drop_frac")
+
+
+def _fluid_cases():
+    """heavy_analytics of BENCH_placement.json (flat) and a small
+    generated fleet (hierarchical), each with an ensemble and plans."""
+    import json
+    from pathlib import Path
+
+    from repro_torch.placement.plan import enumerate_plans
+    from repro_torch.region import FleetGenSpec, generate_fleet
+    from repro_torch.scenario import ScenarioSpec
+
+    bench = Path(__file__).resolve().parents[1] / "BENCH_placement.json"
+    sc = json.loads(bench.read_text())["scenarios"]["heavy_analytics"]
+    flat = ScenarioSpec.from_dict(sc["spec"])
+    hier = generate_fleet(FleetGenSpec(n_sites=12, n_regions=3, seed=5,
+                                       horizon_s=600.0))
+    for spec in (flat, hier):
+        eng = spec.compile()
+        sites = tuple(eng.info().fleet.site_names)
+        plans = list(enumerate_plans(list(eng.order), (4, 8), (1.0,),
+                                     edge_sites=sites[:2]))[:16]
+        yield spec, eng, plans
+
+
+def _assert_fluid_close(got, ref):
+    assert (got.feasible == ref.feasible).all()
+    for k in FLUID_FIELDS:
+        a, b = getattr(got, k), getattr(ref, k)
+        fin = np.isfinite(b)
+        assert (np.isfinite(a) == fin).all(), k
+        err = np.abs(a[fin] - b[fin])
+        assert (err <= FLUID_RTOL * np.maximum(1.0, np.abs(b[fin]))).all(), \
+            (k, float(err.max()))
+
+
+@pytest.mark.gpu
+def test_fluid_on_the_card_matches_the_cpu(cuda):
+    """ScenarioEnsemble on the card (its default device) against the same
+    ensemble with device="cpu", on the flat and the hierarchical branch;
+    the products run in full fp32."""
+    from repro_torch.fluid import ScenarioEnsemble
+    for spec, eng, plans in _fluid_cases():
+        gpu = ScenarioEnsemble.from_spec(spec, n=8, seed=1, engine=eng)
+        cpu = ScenarioEnsemble.from_spec(spec, n=8, seed=1, engine=eng,
+                                         device="cpu")
+        assert gpu.fluid.device == cuda and gpu.fluid is not cpu.fluid
+        _assert_fluid_close(gpu.evaluate(plans, jit=False),
+                            cpu.evaluate(plans))
+
+
+@pytest.mark.gpu
+def test_fluid_graph_replay_equals_eager(cuda):
+    """jit=True runs a shape's first call op by op and replays a CUDA graph,
+    captured on the shape's second call, from then on; its outputs equal
+    the op-by-op run bit for bit, on both branches."""
+    from repro_torch.fluid import ScenarioEnsemble
+    for spec, eng, plans in _fluid_cases():
+        ens = ScenarioEnsemble.from_spec(spec, n=4, seed=2, engine=eng)
+        fl = ens.fluid
+        captures = fl.graph_captures
+        eager = ens.evaluate(plans, jit=False)
+        first = ens.evaluate(plans, jit=True)
+        again = ens.evaluate(plans, jit=True)
+        assert fl.graph_captures == captures + 1
+        for k in FLUID_FIELDS:
+            a, b, c = (getattr(r, k) for r in (eager, first, again))
+            assert np.array_equal(a, b) and np.array_equal(b, c), k
+        once = ens.evaluate(plans[:3], jit=True)
+        assert fl.graph_captures == captures + 1
+        twice = ens.evaluate(plans[:3], jit=True)
+        assert fl.graph_captures == captures + 2
+        assert np.array_equal(once.vos, eager.vos[:, :3])
+        assert np.array_equal(twice.vos, eager.vos[:, :3])
+
+
+@pytest.mark.gpu
+def test_forked_parallel_evaluator_after_cuda(cuda):
+    """A search through ParallelEvaluator forks its workers after this
+    process has made a CUDA context; the workers run host code only, so
+    the pool works and gives the serial plan and VoS bit for bit."""
+    from repro_torch.placement import Evaluator, ParallelEvaluator
+    from repro_torch.region import (FleetGenSpec, generate_fleet,
+                                    region_search)
+    torch.cuda.init()
+    torch.ones(1, device=cuda).sum().item()
+    spec = generate_fleet(FleetGenSpec(n_sites=12, n_regions=3, seed=5,
+                                       horizon_s=600.0))
+    eng = spec.compile()
+    ser = Evaluator(eng)
+    a = region_search(eng, chips_options=(4,), seed=0, sweeps=1,
+                      evaluator=ser)
+    with ParallelEvaluator(eng, workers=2, spec=spec) as pev:
+        b = region_search(eng, chips_options=(4,), seed=0, sweeps=1,
+                          evaluator=pev)
+    assert pev.parallel_batches >= 1 and not pev._pool_broken
+    assert (b.plan.key(), b.result.vos) == (a.plan.key(), a.result.vos)
+    assert (pev.hits, pev.misses, pev.history) == (ser.hits, ser.misses,
+                                                   ser.history)

@@ -210,6 +210,25 @@ def test_executor_takes_tensors():
     assert hx.edge_runs == 1
 
 
+def test_offloaded_count_is_n():
+    """An offloaded ``count`` answers as the edge path does, with n, and
+    launches nothing. The JAX executor has no count on its offload path:
+    it raises ``KeyError`` there, a difference the reference forces."""
+    from repro_torch.kernels.window_agg.kernel import segment_reduce
+    vals = _speeds(100_005, seed=5)
+    hx = torch_pipe.HybridExecutor(device="cpu")
+    launches = segment_reduce.launches
+    assert hx.run_window(vals, "count") == 100_005.0
+    assert (hx.offloads, hx.edge_runs) == (1, 0)
+    assert segment_reduce.launches == launches
+    assert hx.run_window(torch.from_numpy(vals), "count") == 100_005.0
+    edge = torch_pipe.HybridExecutor(edge_budget=200_000, device="cpu")
+    assert edge.run_window(vals, "count") == 100_005.0
+    assert edge.edge_runs == 1
+    with pytest.raises(KeyError, match="count"):
+        jax_pipe.HybridExecutor().run_window(vals, "count")
+
+
 def test_executor_default_device_is_the_card():
     if torch.cuda.is_available():
         assert torch_pipe.HybridExecutor().device.type == "cuda"
