@@ -103,6 +103,31 @@ JSON line; any failure exits non-zero:
           and timed as the search pays it: within FLUID_RTOL of the CPU's
           call on the same finalists and ranked alike under "cvar"; a
           second call of that shape captures a graph, bit-equal
+  serve   the live serving runtime through ``serve_scenario``:
+          BENCH_serve.json's three replays and its ``live`` drift scenario
+          under ``OnlineController(calibrate=True)``, equal to the
+          recorded values; then heavy_analytics served with
+          ``serve_scenario(spec, calibrator=KernelCalibrator())``, the
+          counters set to 0 just before: window_agg and both flash
+          kernels must launch, and its profiles and run equal the CPU
+          calibrator's
+  lm      the language models' serving path at full width (qwen3-1.7b,
+          mamba2-1.3b; weights from a seeded generator on the card):
+          ``serve_demo`` (batch 4, prompt 4,096, 32 generated, bf16) twice
+          each, the counters set to 0 before each: flash_attention_wgmma
+          exactly 28 launches (one per attention layer of the one
+          prefill), ssd_scan_wgmma exactly 48, nothing else (decode
+          launches no kernel); prefill ms, decode ms per token, tokens per
+          second, peak memory; the kernels' device ms per launch inside a
+          prefill (torch.profiler) beside the bound at that shape; fp32 at
+          full depth, prompt 512: prefill + decode against forward within
+          atol 2e-3 / rtol 1e-3 (flash_attention_3xtf32, ssd_scan_fma);
+          depth cut to 2 layers, prompt 256: forward on the card against
+          the same weights on the CPU (the plain versions), fp32 within
+          atol 2e-3 / rtol 1e-3, bf16 within 5e-2 · max|logits| of each
+          row; the SSD's final state at the full-width row shape against
+          the plain recurrence; the path's kernels by CUDA events at the
+          path's shapes, which are the ``kernels`` line's model-path rows
   paper4  the paper's §4 experiment (examples/vos_scheduler_demo.py) on the
           port's core: six heuristics, 120 jobs each, a 70% power cap; the
           VoS must equal the JAX package's, recorded below
@@ -234,7 +259,7 @@ def bound(nbytes, flops, dtype) -> dict:
             else by, "bound_fma_ms": fma}
 
 
-def batches(cuda_ms, fn, key) -> dict:
+def batches(fn, key) -> dict:
     """{key: median ms, key_batches: the 5 batch means, key_spread: max -
     min of them}: 5 batches of 20 launches after 5 warm-ups."""
     ms = sorted(cuda_ms(fn, 20, 5 if i == 0 else 0) for i in range(5))
@@ -1094,6 +1119,446 @@ def region_path(dev, smi0) -> None:
                 "max_memory_allocated": peak}, nvidia_smi=smi0)
 
 
+def serve_path() -> None:
+    """The live serving runtime (``repro_torch.serve``) through its entry
+    point ``serve_scenario``: (a) BENCH_serve.json's three replays (the
+    recorded BENCH_placement.json scenarios under their searched plans)
+    and its ``live`` drift scenario under ``OnlineController(calibrate=
+    True)``, equal to the recorded values; (b) heavy_analytics served with
+    ``serve_scenario(spec, calibrator=KernelCalibrator())``, the counters
+    set to 0 just before: the window_agg and both flash counters must
+    move, and its profiles and its run equal those of the CPU's
+    calibrator."""
+    from repro_torch.online import OnlineController
+    from repro_torch.placement import PlacementPlan
+    from repro_torch.scenario import KernelCalibrator, ScenarioSpec
+    from repro_torch.serve import serve_scenario
+
+    recorded = json.loads((ROOT / "BENCH_serve.json").read_text())
+    placement = json.loads((ROOT / "BENCH_placement.json").read_text())[
+        "scenarios"]
+
+    def lat(r):
+        return {"p50": round(r.latency_p50, 4),
+                "p95": round(r.latency_p95, 4),
+                "p99": round(r.latency_p99, 4)}
+
+    replays = {}
+    for name, rec in recorded["replays"].items():
+        sc = placement[name]
+        spec = ScenarioSpec.from_dict(sc["spec"])
+        plan = PlacementPlan.from_dict(sc["search"]["assignments"])
+        t0 = time.perf_counter()
+        r = serve_scenario(spec).run_plan(plan)
+        wall = time.perf_counter() - t0
+        got = {"plan": r.plan_label, "vos_real": round(r.vos, 4),
+               "latency_real": lat(r), "fires": r.fires_total,
+               "ledger_conserved": r.ledger.conserved()}
+        want = {"plan": rec["plan"], "vos_real": rec["vos_real"],
+                "latency_real": rec["latency_real"],
+                "fires": rec["fires"]["real"],
+                "ledger_conserved": rec["ledger_conserved"]}
+        require(got == want, f"serve replay {name}: {got} != {want}")
+        replays[name] = {**got, "vos": r.vos, "seconds": wall}
+
+    live = recorded["live"]
+    spec = ScenarioSpec.from_dict(live["spec"])
+    ctl = OnlineController(calibrate=True)
+    t0 = time.perf_counter()
+    r = serve_scenario(spec).run(ctl)
+    live_s = time.perf_counter() - t0
+    cal = ctl.calibration
+    got = {"vos_real": round(r.vos, 4), "latency_real": lat(r),
+           "migrations": r.migrations, "ledger_conserved":
+           r.ledger.conserved(), "observations": cal.observations,
+           "history_len": len(cal.history),
+           "last_corrections": cal.history[-1]["corrections"]}
+    want = {"vos_real": live["vos_real"], "latency_real":
+            live["latency_real"], "migrations": live["migrations"]["real"],
+            "ledger_conserved": live["ledger_conserved"],
+            **live["calibration"]}
+    require(got == want, f"serve live: {got} != {want}")
+
+    sc = placement["heavy_analytics"]
+    spec = ScenarioSpec.from_dict(sc["spec"])
+    plan = PlacementPlan.from_dict(sc["search"]["assignments"])
+    counters = zeroed_counters()
+    t0 = time.perf_counter()
+    card = serve_scenario(spec, calibrator=KernelCalibrator())
+    card_s = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    require(all(launches[k] > 0 for k in ("window_agg",
+                                           "flash_attention_wgmma",
+                                           "flash_attention_3xtf32")),
+            f"the calibrated serve_scenario missed a kernel: {launches}")
+    cpu = serve_scenario(spec, calibrator=KernelCalibrator(device="cpu"))
+    require(card.profiles == cpu.profiles,
+            "calibrated serve_scenario: card profiles != CPU profiles")
+    a, b = card.run_plan(plan), cpu.run_plan(plan)
+    require(a.ledger.conserved() and math.isfinite(a.vos)
+            and (a.vos, a.ledger.totals(), a.energy_total_j)
+            == (b.vos, b.ledger.totals(), b.energy_total_j),
+            f"calibrated serve: card VoS {a.vos!r} != CPU VoS {b.vos!r}")
+    emit("serve", replays=replays, live={**got, "vos": r.vos,
+                                         "seconds": live_s},
+         calibrated={"scenario": "heavy_analytics", "launches": launches,
+                     "flops_per_record": {k: p.flops_per_record for k, p
+                                          in card.profiles.items()},
+                     "plan": plan.label, "vos": a.vos,
+                     "serve_scenario_seconds": card_s})
+
+
+# the language models' serving path at full width: batch, prompt and
+# generated tokens of the served runs; the prompt of the fp32 consistency
+# check (full depth) and of the card-against-plain check (depth cut to
+# LM_PLAIN_LAYERS)
+LM_ARCHS = ("qwen3-1.7b", "mamba2-1.3b")
+LM_SERVE = dict(batch=4, prompt_len=4096, gen=32)
+LM_CONSISTENCY = (2, 512)
+LM_PLAIN = (1, 256)
+LM_PLAIN_LAYERS = 2
+LM_BF16_ROW_RTOL = 5e-2
+TRACE_TIMEOUT_S = 300
+
+
+def per_call_device_ms(fn, accept) -> dict:
+    """Device ms per launch of each kernel that one call of fn runs, and
+    its launches, from torch.profiler; a trace that ``accept`` refuses
+    (the profiler drops a trace's device events now and then) is reported
+    on a ``profiler_retry`` line and taken again, as in
+    ``kernel_device_ms``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(1, PROFILER_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            t = getattr(e, "self_device_time_total", None)
+            if t is None:
+                t = e.self_cuda_time_total
+            if t > 0:
+                name = re.sub(r"^void |\(anonymous namespace\)::", "", e.key)
+                out[name.split("(")[0]] = {"launches": e.count,
+                                           "ms_per_launch": t / e.count / 1e3}
+        if accept(out):
+            return out
+        emit("profiler_retry", attempt=attempt, seen=out)
+    raise SmokeFailure(f"torch.profiler did not see the kernels in "
+                       f"{PROFILER_ATTEMPTS} traces")
+
+
+def trace_prefill(arch) -> None:
+    """(Run as ``chip_smoke.py --trace-prefill ARCH``, by ``lm_path``.) One
+    bf16 prefill at the served shape of ``arch`` cut to LM_PLAIN_LAYERS,
+    after a warm-up, under torch.profiler; prints the path's kernels as
+    {name: {launches, ms_per_launch}} on its last line. It runs in a
+    process of its own: when the lm phase traced prefills in the main
+    process, every later trace there (the ``times`` phase's) saw no device
+    time on an H100, whatever the prefill's size."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model as M
+
+    dev = torch.device("cuda", 0)
+    cfg = dataclasses.replace(get_arch(arch), n_layers=LM_PLAIN_LAYERS)
+    names = (("flash_forward_sm90",) if cfg.ssm is None else
+             ("chunk_state_wgmma", "state_pass", "chunk_output_wgmma"))
+    model = M.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    B, S = LM_SERVE["batch"], LM_SERVE["prompt_len"]
+    batch = lm_batch(cfg, B, S, dev)
+
+    def prefill():
+        return M.prefill(cfg, model, batch, S + LM_SERVE["gen"])
+
+    def inside(seen):
+        return {k: v for k, v in seen.items() if k.split("<")[0] in names}
+
+    def accept(seen):
+        got = inside(seen)
+        return len(got) == len(names) and all(
+            v["launches"] == LM_PLAIN_LAYERS for v in got.values())
+    prefill()
+    torch.cuda.synchronize()
+    print(json.dumps(inside(per_call_device_ms(prefill, accept))),
+          flush=True)
+
+
+def lm_batch(cfg, B, S, dev):
+    """make_batch's tokens (and stub inputs) on the card."""
+    import torch
+    from repro_torch.data import make_batch
+    bd = make_batch(cfg, S, B, 0, SEED)
+    bd.pop("labels")
+    return {k: torch.as_tensor(v, device=dev) for k, v in bd.items()}
+
+
+def logits_err(got, want, vocab, dtype, what) -> dict:
+    """|card - plain| over the real vocabulary: fp32 within atol 2e-3 /
+    rtol 1e-3, bf16 within LM_BF16_ROW_RTOL · max|plain| of each row."""
+    import torch
+    got, want = got.float().cpu()[..., :vocab], want.float().cpu()[..., :vocab]
+    require(bool(torch.isfinite(got).all()), f"{what}: not finite")
+    diff = (got - want).abs()
+    row_max = want.abs().amax(-1)
+    rel = float((diff.amax(-1) / row_max).max())
+    if dtype == "float32":
+        ok = bool((diff <= 2e-3 + 1e-3 * want.abs()).all())
+        tol = "atol 2e-3, rtol 1e-3"
+    else:
+        ok = bool((diff.amax(-1) <= LM_BF16_ROW_RTOL * row_max).all())
+        tol = f"|err| <= {LM_BF16_ROW_RTOL} * max|plain| per row"
+    require(ok, f"{what}: max |err| {float(diff.max())} ({tol})")
+    return {"max_abs_err": float(diff.max()), "max_row_err_over_row_max":
+            rel, "tolerance": tol}
+
+
+def lm_path(dev, gen, smi0) -> list:
+    """The language models' serving path at full width (qwen3-1.7b: 28
+    attention layers; mamba2-1.3b: 48 SSD layers), weights from a seeded
+    generator on the card:
+      (a) ``serve_demo`` (batch 4, prompt 4,096, 32 generated, bf16),
+          twice each, the counters set to 0 before each: the path's bf16
+          kernel launches exactly once per layer (28 / 48: one prefill;
+          decode launches none) and no other kernel; prefill ms, decode
+          ms per token, tokens per second, peak memory;
+      (b) fp32 at full depth, prompt 512 (flash_attention_3xtf32,
+          ssd_scan_fma): prefill(t[:S]) + decode(t[S]) against
+          forward(t[:S+1]) within atol 2e-3 / rtol 1e-3;
+      (c) depth cut to 2 layers: a bf16 prefill at the served shape
+          under torch.profiler in a child process (``trace_prefill``),
+          each kernel's device ms per launch inside the model beside the
+          bound at that shape; then, prompt 256, forward on the card (the
+          kernels) against the same weights on the CPU (the plain
+          versions), fp32 and bf16;
+      (d) the SSD's final state at the full-width row shape against the
+          plain recurrence, fp32 and bf16;
+      (e) the path's kernels by CUDA events at the shapes the path gives
+          them, beside the bound and the library call, for the
+          ``kernels`` line.
+    Returns the ``kernels`` rows of the path."""
+    import contextlib
+    import io
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import attention_reference
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bshd
+    from repro_torch.kernels.flash_attention.ops import flash_attention_flops
+    from repro_torch.kernels.ssd_scan import ssd_scan_reference
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_blh
+    from repro_torch.kernels.sweeps import (FLASH_TOL, FULL_SSD_RTOL,
+                                            SSD_RTOL, full_widths)
+    from repro_torch.launch.serve import serve_demo
+    from repro_torch.models import model as M
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = []
+    for arch in LM_ARCHS:
+        cfg = get_arch(arch)
+        attn = cfg.ssm is None
+        mixer = "attn" if attn else "ssm"
+        n_path = sum(k.startswith(mixer) for k in cfg.layer_kinds())
+        kernels = (("flash_attention_wgmma", "flash_attention_3xtf32")
+                   if attn else ("ssd_scan_wgmma", "ssd_scan_fma"))
+
+        # (a) serving through the launcher
+        for run in ("first", "second"):
+            counters = zeroed_counters()
+            torch.cuda.reset_peak_memory_stats(dev)
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                rep = serve_demo(arch, full=True, seed=SEED, device=dev,
+                                 **LM_SERVE)
+            launches = {k: c.launches for k, c in counters.items()}
+            want = {k: 0 for k in launches}
+            want[kernels[0]] = n_path
+            want["flash_attention" if attn else "ssd_scan"] = n_path
+            require(launches == want, f"serve_demo {arch}: launches "
+                    f"{launches}, want {want}")
+            row = {"arch": arch, "run": run, **LM_SERVE,
+                   "prefill_ms": rep.prefill_s * 1e3,
+                   "decode_ms_per_token": rep.decode_ms_per_token,
+                   "prefill_tokens_per_s": rep.prefill_tokens_per_s,
+                   "decode_tokens_per_s": rep.decode_tokens_per_s,
+                   "generated_tokens_per_s": rep.batch * rep.gen
+                   / (rep.prefill_s + rep.decode_s),
+                   "max_memory_allocated": torch.cuda.max_memory_allocated(
+                       dev), "launches": launches,
+                   "printed": printed.getvalue().strip(),
+                   "nvidia_smi": smi0}
+            emit("lm", case="serve_demo", **row)
+            del rep
+
+        # (b) fp32 at full depth: prefill + decode against forward
+        model = M.init_params(cfg, torch.Generator(device=dev).manual_seed(
+            SEED))
+        counters = zeroed_counters()
+        Bc, Sc = LM_CONSISTENCY
+        t = lm_batch(cfg, Bc, Sc + 1, dev)["tokens"]
+        with torch.no_grad():
+            full, _ = M.forward(cfg, model, {"tokens": t},
+                                compute_dtype=torch.float32)
+        logits0, cache = M.prefill(cfg, model, {"tokens": t[:, :Sc]},
+                                   cache_len=Sc + 8,
+                                   compute_dtype=torch.float32)
+        logits1, _ = M.decode_step(cfg, model, cache, t[:, Sc:], Sc,
+                                   compute_dtype=torch.float32)
+        fp32_launches = {k: c.launches for k, c in counters.items()}
+        require(fp32_launches[kernels[1]] == 2 * n_path,
+                f"{arch} fp32 forward + prefill: launches {fp32_launches}")
+        V = cfg.vocab_size
+        errs = {"prefill": logits_err(logits0, full[:, Sc - 1], V,
+                                      "float32", f"{arch} fp32 prefill"),
+                "decode": logits_err(logits1, full[:, Sc], V, "float32",
+                                     f"{arch} fp32 decode")}
+        emit("lm", case="consistency_fp32", arch=arch, batch=Bc,
+             prompt_len=Sc, launches=fp32_launches, errors=errs)
+        del model, full, cache, logits0, logits1
+        torch.cuda.empty_cache()
+
+        # (c) the model cut to LM_PLAIN_LAYERS: the kernels inside a
+        # prefill at the served shape, then the card against plain
+        cfg2 = dataclasses.replace(cfg, n_layers=LM_PLAIN_LAYERS)
+        model2 = M.init_params(cfg2, torch.Generator(device=dev).manual_seed(
+            SEED))
+        cpu2 = copy.deepcopy(model2).cpu()
+        # the kernels inside a bf16 prefill at the served shape, traced in
+        # a child process (trace_prefill)
+        B, S = LM_SERVE["batch"], LM_SERVE["prompt_len"]
+        if attn:
+            shape = (B, S, S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                     True)
+            nbytes = 2 * B * S * cfg.head_dim * (cfg.n_heads
+                                                 + cfg.n_kv_heads) * 2
+            bnd = bound(nbytes, flash_attention_flops(
+                (B, S, cfg.n_heads, cfg.head_dim),
+                (B, S, cfg.n_kv_heads, cfg.head_dim), True), "bfloat16")
+        else:
+            s = cfg.ssm
+            H = s.n_heads(cfg.d_model)
+            shape = (B, S, H, s.head_dim, s.n_groups, s.d_state,
+                     s.chunk_size)
+            P, G, N = s.head_dim, s.n_groups, s.d_state
+            nbytes = (2 * B * S * H * P * 2 + B * S * H * 4 + H * 4
+                      + 2 * B * S * G * N * 2 + B * H * P * N * 4)
+            bnd = bound(nbytes, ssd_flops(B, S, H, P, N), "bfloat16")
+        child = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--trace-prefill", arch], capture_output=True, text=True,
+            timeout=TRACE_TIMEOUT_S)
+        require(child.returncode == 0, f"{arch} prefill trace: exit "
+                f"{child.returncode}\n{child.stderr[-3000:]}")
+        inside = json.loads(child.stdout.splitlines()[-1])
+        emit("lm", case="in_model_device_ms", arch=arch, dtype="bfloat16",
+             layers=LM_PLAIN_LAYERS, shape=list(shape), kernels=inside,
+             ms_per_launch=sum(v["ms_per_launch"] for v in inside.values()),
+             bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"],
+             profiler_retries=len(child.stdout.splitlines()) - 1,
+             nvidia_smi=smi0)
+
+        Bp, Sp = LM_PLAIN
+        bp = lm_batch(cfg2, Bp, Sp, dev)
+        for dt in ("float32", "bfloat16"):
+            counters = zeroed_counters()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                card, _ = M.forward(cfg2, model2, bp,
+                                    compute_dtype=getattr(torch, dt))
+                torch.cuda.synchronize()
+                card_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                cpu, _ = M.forward(cfg2, cpu2, {k: v.cpu() for k, v in
+                                                bp.items()},
+                                   compute_dtype=getattr(torch, dt))
+            cpu_s = time.perf_counter() - t0
+            k = kernels[0] if dt == "bfloat16" else kernels[1]
+            require(counters[k].launches == LM_PLAIN_LAYERS,
+                    f"{arch} {dt} depth-2 forward: {k} launches "
+                    f"{counters[k].launches}")
+            emit("lm", case="card_vs_plain", arch=arch, dtype=dt,
+                 layers=LM_PLAIN_LAYERS, batch=Bp, prompt_len=Sp,
+                 card_seconds=card_s, cpu_seconds=cpu_s,
+                 **logits_err(card, cpu, V, dt, f"{arch} {dt} card vs "
+                              "plain"))
+        del model2, cpu2, card, cpu
+
+        # (d), (e) the path's kernels at the path's shapes
+        if attn:
+            fp32_shape = (Bc, Sc, Sc, cfg.n_heads, cfg.n_kv_heads,
+                          cfg.head_dim, True)
+            cases = ((kernels[0], "bfloat16", shape, n_path),
+                     (kernels[1], "float32", fp32_shape,
+                      fp32_launches[kernels[1]]))
+        else:
+            _, ssd_full = full_widths()
+            for dt in ("float32", "bfloat16"):
+                x, dtt, A, Bm, Cm = ssd_inputs(dev, gen, *ssd_full[:6], dt)
+                y, h = ssd_scan_blh(x, dtt, A, Bm, Cm, return_state=True)
+                yr, hr = ssd_scan_reference(x, dtt, A, Bm, Cm,
+                                            return_state=True)
+                torch.cuda.synchronize()
+                e = {n: float((a.float() - b.float()).abs().max())
+                     / float(b.float().abs().max())
+                     for n, a, b in (("y", y, yr), ("h_final", h, hr))}
+                require(all(v <= FULL_SSD_RTOL[dt] for v in e.values()),
+                        f"ssd final state {dt}: {e}")
+                emit("lm", case="ssd_final_state", shape=list(ssd_full[:6]),
+                     dtype=dt, err_over_max_plain=e,
+                     tolerance=FULL_SSD_RTOL[dt])
+                del x, dtt, A, Bm, Cm, y, h, yr, hr
+            fp32_shape = (Bc, Sc) + shape[2:]
+            cases = ((kernels[0], "bfloat16", shape, n_path),
+                     (kernels[1], "float32", fp32_shape,
+                      fp32_launches[kernels[1]]))
+        for name, dt, shp, n in cases:
+            if attn:
+                q, k, v = flash_inputs(dev, gen, *shp[:6], dt)
+                out, ref = (flash_attention_bshd(q, k, v, causal=True),
+                            attention_reference(q, k, v, causal=True))
+                torch.cuda.synchronize()
+                diff = (out.float() - ref.float()).abs()
+                err = float(diff.max())
+                if dt == "bfloat16":
+                    row = ref.float().abs().amax(-1)
+                    ok = bool((diff.amax(-1) <= 2e-2 * row).all())
+                else:
+                    ok = err <= FLASH_TOL[dt]
+                del q, k, v, out, ref, diff
+                t = time_flash(dev, gen, shp, dt, profile=False)
+            else:
+                args = ssd_inputs(dev, gen, *shp[:6], dt)
+                y, h = ssd_scan_blh(*args, return_state=True)
+                yr, hr = ssd_scan_reference(*args, return_state=True)
+                torch.cuda.synchronize()
+                err = float((y.float() - yr.float()).abs().max())
+                tol = (FULL_SSD_RTOL if dt == "bfloat16" else SSD_RTOL)[dt]
+                ok = (err <= tol * float(yr.float().abs().max())
+                      and float((h - hr).abs().max())
+                      <= tol * float(hr.abs().max()))
+                del args, y, h, yr, hr
+                t = time_ssd(dev, gen, shp, dt, return_state=True,
+                             profile=False, plain_reps=1)
+            require(ok, f"{name} at the path's shape {shp}: max |err| {err}")
+            path = ("bf16 prefill" if dt == "bfloat16"
+                    else "fp32 forward + prefill")
+            emit("times", case=f"{name} {arch} {path}", shape=list(shp),
+                 dtype=dt, launches=n, max_abs_err=err, nvidia_smi=smi0,
+                 **t)
+            if attn:
+                src = ("flash_attention_sm90" if dt == "bfloat16"
+                       else "flash_attention_sm90_f32")
+                row = (f"flash_attention.{name} {arch} {path}", src,
+                       "src/repro/kernels/flash_attention/kernel.py:87")
+            else:
+                row = (f"ssd_scan.{name} {arch} {path}", "ssd_scan",
+                       "src/repro/kernels/ssd_scan/kernel.py:71")
+            rows.append((*row, n, err, t))
+        torch.cuda.empty_cache()
+    return rows
+
+
 def paper4() -> None:
     """examples/vos_scheduler_demo.py on the port's core."""
     from repro_torch import hardware as hw
@@ -1136,86 +1601,132 @@ def kernel_device_ms(fn, n=10) -> dict:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        out = {}
+        out, seen = {}, {}
         for e in prof.key_averages():
             t = getattr(e, "self_device_time_total", None)
             if t is None:
                 t = e.self_cuda_time_total
+            name = re.sub(r"^void |\(anonymous namespace\)::", "", e.key)
+            name = name.split("(")[0]
+            if t > 0:
+                seen[name] = e.count
             if t > 0 and e.count % n == 0:
-                name = re.sub(r"^void |\(anonymous namespace\)::", "", e.key)
-                out[name.split("(")[0]] = t / n / 1e3
+                out[name] = t / n / 1e3
         if out:
             return out
-        emit("profiler_retry", attempt=attempt)
+        emit("profiler_retry", attempt=attempt, device_entries_seen=seen)
     raise SmokeFailure(f"torch.profiler saw no device time in "
                        f"{PROFILER_ATTEMPTS} traces")
 
 
-def time_attention_and_ssd(dev, gen, cuda_ms, smi0) -> dict:
-    """Kernel, plain version and library call at full width by CUDA
-    events, beside the bound; the kernel and the library call as the
-    median of 5 batches of 20 launches after 5 warm-ups, with the spread
-    (max - min) of the batches. Returns the timings by (kernel, dtype)."""
+def cuda_ms(fn, reps=50, warm=3):
+    """Mean device ms of fn over ``reps`` calls after ``warm`` warm-ups, by
+    CUDA events."""
+    import torch
+    for _ in range(warm):
+        fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def time_flash(dev, gen, shape, dt, profile=True) -> dict:
+    """Flash attention's kernel, plain version and SDPA at ``shape`` (B,
+    Sq, Skv, H, KV, d, causal) in ``dt`` by CUDA events, beside the bound;
+    the kernel and SDPA as the median of 5 batches of 20 launches after 5
+    warm-ups, with the spread (max - min) of the batches; with ``profile``
+    each kernel's device time from torch.profiler."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import attention_reference
     from repro_torch.kernels.flash_attention.kernel import flash_attention_bshd
     from repro_torch.kernels.flash_attention.ops import flash_attention_flops
+
+    B, Sq, Skv, H, KV, d, causal = shape
+    q, k, v = flash_inputs(dev, gen, B, Sq, Skv, H, KV, d, dt)
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+    flops = flash_attention_flops(q.shape, k.shape, causal)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    t = {**batches(lambda: flash_attention_bshd(
+             q, k, v, causal=causal), "ms"),
+         "plain_ms": cuda_ms(lambda: attention_reference(
+             q, k, v, causal=causal), 5, 1),
+         # SDPA's is_causal is top-left aligned: the same mask at Sq = Skv
+         **batches(lambda: F.scaled_dot_product_attention(
+             qt, kt, vt, is_causal=causal, enable_gqa=True), "library_ms"),
+         **bound(nbytes, flops, dt), "flops": flops, "bytes": nbytes,
+         "kernel": "wgmma" if dt == "bfloat16" else "3xtf32"}
+    if profile:
+        t["device_ms_by_kernel"] = kernel_device_ms(
+            lambda: flash_attention_bshd(q, k, v, causal=causal))
+    return t
+
+
+def ssd_flops(B, L, H, P, N) -> int:
+    """The SSD's least work, that of the recurrence h <- e^(dt·A)·h +
+    dt·x·Bᵀ, y = C·h: one FMA per state element and step to update h and
+    one to read it out, 4·N·P flops per step and head (the decay's
+    multiply left out). The chunked form that the calibrator counts
+    (ssd_scan_flops) does more."""
+    return 4 * N * P * B * L * H
+
+
+def time_ssd(dev, gen, shape, dt, return_state=False, profile=True,
+             plain_reps=2) -> dict:
+    """The SSD kernel and its plain version at ``shape`` (B, L, H, P, G,
+    N, chunk) in ``dt`` by CUDA events, beside the bound (the final state
+    counted among the outputs with ``return_state``), as ``time_flash``;
+    no single PyTorch call computes it."""
     from repro_torch.kernels.ssd_scan import ssd_scan_reference
     from repro_torch.kernels.ssd_scan.kernel import ssd_scan_blh
     from repro_torch.kernels.ssd_scan.ops import ssd_scan_flops
+
+    B, L, H, P, G, N, chunk = shape
+    x, dtt, A, Bm, Cm = ssd_inputs(dev, gen, B, L, H, P, G, N, dt)
+    nbytes = sum(a.numel() * a.element_size()
+                 for a in (x, dtt, A, Bm, Cm, x))
+    if return_state:
+        nbytes += B * H * P * N * 4
+    t = {**batches(lambda: ssd_scan_blh(
+             x, dtt, A, Bm, Cm, return_state=return_state), "ms"),
+         "plain_ms": cuda_ms(lambda: ssd_scan_reference(
+             x, dtt, A, Bm, Cm, return_state=return_state), plain_reps, 1),
+         "library_ms": None,
+         **bound(nbytes, ssd_flops(B, L, H, P, N), dt),
+         "flops": ssd_flops(B, L, H, P, N), "bytes": nbytes,
+         "calibrator_flops": ssd_scan_flops(x.shape, Bm.shape, chunk)}
+    if profile:
+        t["device_ms_by_kernel"] = kernel_device_ms(
+            lambda: ssd_scan_blh(x, dtt, A, Bm, Cm))
+    return t
+
+
+def time_attention_and_ssd(dev, gen, smi0) -> dict:
+    """Kernel, plain version and library call at full width (see
+    ``time_flash`` and ``time_ssd``). Returns the timings by (kernel,
+    dtype)."""
     from repro_torch.kernels.sweeps import full_widths
 
     flash_full, ssd_full = full_widths()
     timed = {}
     for dt in ("bfloat16", "float32"):
+        t = timed[("flash", dt)] = time_flash(dev, gen, flash_full, dt)
         B, Sq, Skv, H, KV, d, causal = flash_full
-        q, k, v = flash_inputs(dev, gen, B, Sq, Skv, H, KV, d, dt)
-        nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
-        flops = flash_attention_flops(q.shape, k.shape, causal)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        t = {**batches(cuda_ms, lambda: flash_attention_bshd(
-                 q, k, v, causal=causal), "ms"),
-             "plain_ms": cuda_ms(lambda: attention_reference(
-                 q, k, v, causal=causal), 5, 1),
-             # SDPA's is_causal is top-left aligned: the same mask at Sq = Skv
-             **batches(cuda_ms, lambda: F.scaled_dot_product_attention(
-                 qt, kt, vt, is_causal=True, enable_gqa=True), "library_ms"),
-             **bound(nbytes, flops, dt), "flops": flops, "bytes": nbytes,
-             "kernel": "wgmma" if dt == "bfloat16" else "3xtf32",
-             "device_ms_by_kernel": kernel_device_ms(
-                 lambda: flash_attention_bshd(q, k, v, causal=causal))}
-        timed[("flash", dt)] = t
-        emit("times", case="flash_attention qwen3-1.7b", shape=[list(q.shape),
-             list(k.shape)], dtype=dt, causal=causal, nvidia_smi=smi0,
+        emit("times", case="flash_attention qwen3-1.7b",
+             shape=[[B, Sq, H, d], [B, Skv, KV, d]], dtype=dt, causal=causal,
+             nvidia_smi=smi0,
              library="scaled_dot_product_attention(is_causal, enable_gqa)",
              **t)
-        del q, k, v, qt, kt, vt
-
+        t = timed[("ssd", dt)] = time_ssd(dev, gen, ssd_full, dt)
         B, L, H, P, G, N, chunk = ssd_full
-        x, dtt, A, Bm, Cm = ssd_inputs(dev, gen, B, L, H, P, G, N, dt)
-        nbytes = sum(a.numel() * a.element_size()
-                     for a in (x, dtt, A, Bm, Cm, x))
-        # the bound counts the function's least work, that of the
-        # recurrence h <- e^(dt·A)·h + dt·x·Bᵀ, y = C·h: one FMA per state
-        # element and step to update h and one to read it out, 4·N·P flops
-        # per step and head (the decay's multiply left out). The chunked
-        # form that the calibrator counts (ssd_scan_flops) does more.
-        flops = 4 * N * P * B * L * H
-        t = {**batches(cuda_ms, lambda: ssd_scan_blh(x, dtt, A, Bm, Cm),
-                       "ms"),
-             "plain_ms": cuda_ms(lambda: ssd_scan_reference(
-                 x, dtt, A, Bm, Cm), 2, 1),
-             "library_ms": None, **bound(nbytes, flops, dt),
-             "flops": flops, "bytes": nbytes,
-             "calibrator_flops": ssd_scan_flops(x.shape, Bm.shape, chunk),
-             "device_ms_by_kernel": kernel_device_ms(
-                 lambda: ssd_scan_blh(x, dtt, A, Bm, Cm))}
-        timed[("ssd", dt)] = t
-        emit("times", case="ssd_scan mamba2-1.3b", shape=list(x.shape),
+        emit("times", case="ssd_scan mamba2-1.3b", shape=[B, L, H, P],
              d_state=N, chunk=chunk, dtype=dt, nvidia_smi=smi0,
              library=None, **t)
-        del x, dtt, A, Bm, Cm
     return timed
 
 
@@ -1550,21 +2061,11 @@ def main() -> None:
     search_path(dev)
     fluid = fluid_path(dev, smi0)
     region_path(dev, smi0)
+    serve_path()
+    lm_rows = lm_path(dev, gen, smi0)
     paper4()
 
     # ---- times ---------------------------------------------------------------------
-    def cuda_ms(fn, reps=50, warm=3):
-        for _ in range(warm):
-            fn()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        return a.elapsed_time(b) / reps
-
     library = {"max": torch.amax, "sum": torch.sum}
     timed = {}
     for name, (x, stride) in main_shapes().items():
@@ -1579,11 +2080,11 @@ def main() -> None:
                     return lib(x.view(n_seg, stride, x.shape[1]), 1)
             nbytes = (n_seg * stride + n_seg) * x.shape[1] * x.element_size()
             # one fp32 compare or add per element
-            t = {**batches(cuda_ms, lambda: segment_reduce(
+            t = {**batches(lambda: segment_reduce(
                      x, agg=agg, stride=stride), "ms"),
                  "plain_ms": cuda_ms(lambda: segment_reduce_plain(
                      x, agg=agg, stride=stride)),
-                 **batches(cuda_ms, lib_call, "library_ms"),
+                 **batches(lib_call, "library_ms"),
                  **bound(nbytes, n_seg * stride * x.shape[1], "float32")}
             timed[(name, agg)] = t
             emit("times", case=name, shape=list(x.shape), dtype=str(x.dtype),
@@ -1601,7 +2102,7 @@ def main() -> None:
          windows=[{k: r[k] for k in ("n", "agg", "seconds")}
                   for r in runs if "seconds" in r],
          max_memory_allocated=peak, nvidia_smi=smi0)
-    timed_full = time_attention_and_ssd(dev, gen, cuda_ms, smi0)
+    timed_full = time_attention_and_ssd(dev, gen, smi0)
     # the fluid stepper's kernels per call, traced last: after a trace of
     # the stepper, torch.profiler saw no device time in later traces. One
     # call each, then a probe trace of one small kernel: whether the
@@ -1623,7 +2124,9 @@ def main() -> None:
     # window_agg at the Q2 fold and the fleet shape (sum), its launches on
     # the pipeline's path and on the fleet path; flash attention's and the SSD scan's two kernels
     # each at full width in their types (bf16: wgmma; fp32: 3xTF32 for
-    # flash, FMA for the SSD), their launches on the calibration path
+    # flash, FMA for the SSD), their launches on the calibration path; then
+    # the same kernels at the language models' shapes, with their launches
+    # on the lm path (one bf16 prefill; one fp32 forward and prefill)
     window = "src/repro/kernels/window_agg/kernel.py:45"
     flash = "src/repro/kernels/flash_attention/kernel.py:87"
     ssd = "src/repro/kernels/ssd_scan/kernel.py:71"
@@ -1646,7 +2149,7 @@ def main() -> None:
               timed_full[("ssd", "bfloat16")]),
              ("ssd_scan.ssd_scan_fma", "ssd_scan", ssd,
               cal_launches["ssd_scan_fma"], full_err[("ssd", "float32")],
-              timed_full[("ssd", "float32")])]
+              timed_full[("ssd", "float32")])] + lm_rows
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{src}.cu",
@@ -1663,4 +2166,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--trace-prefill"]:
+        trace_prefill(sys.argv[2])
+    else:
+        main()

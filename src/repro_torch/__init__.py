@@ -9,7 +9,7 @@ neither ``jax`` nor ``repro``. What is ported so far:
 - ``kernels``: the three Pallas kernels of the JAX package as CUDA C++
   kernels for Hopper (``kernels/csrc/``): ``window_agg``, the segment
   reduction behind the offload, and ``flash_attention`` and ``ssd_scan``,
-  which the calibrator dry-runs;
+  which the calibrator dry-runs and the models run;
 - ``core``: the JITA-4DS core of the paper's §4 (VoS curves, the VDC pod
   grid, the heuristics, the discrete-event ``Simulator``) with the cost
   modules it needs (``hardware``, ``configs``, ``roofline``, ``utils``),
@@ -23,6 +23,10 @@ neither ``jax`` nor ``repro``. What is ported so far:
   chaos controllers, carried as they are;
 - ``fluid``: the batched fluid engine, whose time-stepper scores drift
   realizations × plans at once on the card;
+- ``serve``: the live serving runtime, carried as it is;
+- ``models``, ``data``, ``train``, ``launch``: the language models'
+  serving path (prefill and greedy decode), with attention and the
+  Mamba-2 scan on the flash and SSD kernels;
 - ``convert``: carries the JAX package's parameters (as numpy) across.
 
 Entry points run on the CUDA card unless the caller passes

@@ -5,6 +5,10 @@ from ``jax.random``, whose streams torch cannot reproduce. To hold the
 port against it on the same numbers, those arrays are handed over as
 numpy and converted here; nothing in this module imports JAX.
 
+The language models' parameters are drawn from ``jax.random`` too;
+``lm_params_from_jax`` carries a JAX parameter tree into the port's
+per-layer modules.
+
 The JITA-4DS core, the calibrator and the flash attention and SSD
 kernels carry no parameters: their inputs are numpy arrays and traces
 made from a seed, the same in both packages, so nothing here is needed
@@ -12,12 +16,14 @@ for them.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
 
+from repro_torch.configs import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.model import LM
 from repro_torch.pipeline.operators import CNNClassifier
 
 
@@ -42,3 +48,51 @@ def centers_from_jax(centers: np.ndarray, *,
                      device: DeviceLike = None) -> torch.Tensor:
     """k-means initial centers ``[k, d]``, taken as they are."""
     return torch.as_tensor(np.asarray(centers), device=resolve_device(device))
+
+
+def _flat(tree, prefix: str, out: Dict[str, np.ndarray]) -> None:
+    """The leaves of a nested dict as {"a.b.c": array}."""
+    for name, v in tree.items():
+        if isinstance(v, Mapping):
+            _flat(v, f"{prefix}{name}.", out)
+        else:
+            out[prefix + name] = np.asarray(v)
+
+
+def _unstack(groups, layers: str, n_layers: int, out) -> None:
+    """Stacked groups (one dict of [R, ...] leaves per pattern position j)
+    to ``{layers}.{r * len(groups) + j}.<path>``."""
+    for j, group in enumerate(groups):
+        flat: Dict[str, np.ndarray] = {}
+        _flat(group, "", flat)
+        for path, a in flat.items():
+            if a.shape[0] * len(groups) != n_layers:
+                raise ValueError(f"{layers}: {len(groups)} groups of "
+                                 f"{a.shape[0]} for {n_layers} layers")
+            for r in range(a.shape[0]):
+                out[f"{layers}.{r * len(groups) + j}.{path}"] = a[r]
+
+
+def lm_params_from_jax(cfg: ArchConfig, params: Mapping, *,
+                       device: DeviceLike = None) -> LM:
+    """An ``LM`` of ``cfg`` with the JAX package's parameters (a tree of
+    arrays as its ``models.model.init_params`` returns, numpy or anything
+    ``np.asarray`` reads). ``params["blocks"]`` holds one stacked group per
+    pattern position, [R, ...] each; layer r · P + j of the port's
+    ``blocks`` takes row r of group j. Every tensor keeps its layout
+    (``wq`` [D, H, dh], ``w_gate`` [E, D, F], ...), which the port reads
+    with the reference's einsums. Every parameter of the port must be
+    given, and nothing else."""
+    dev = resolve_device(device)
+    sd: Dict[str, np.ndarray] = {}
+    top = {k: v for k, v in params.items()
+           if k not in ("blocks", "enc_blocks")}
+    _flat(top, "", sd)
+    _unstack(params["blocks"], "blocks", cfg.n_layers, sd)
+    if cfg.enc_dec is not None:
+        _unstack(params["enc_blocks"], "enc_blocks",
+                 cfg.enc_dec.n_enc_layers, sd)
+    model = LM(cfg, torch.Generator(device=dev).manual_seed(0))
+    model.load_state_dict({k: torch.from_numpy(np.array(v, np.float32))
+                           for k, v in sd.items()}, strict=True)
+    return model

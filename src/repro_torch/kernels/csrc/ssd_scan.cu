@@ -20,7 +20,10 @@
 //   2. state_pass   (grid tiles of N*P x B*H): per state element, in chunk
 //      order, h_in[c] = running; running = exp(total_c) running + S_c. In
 //      fp32 it overwrites S with h_in in place; in bf16 it writes h_in,
-//      rounded to bf16, to a buffer of its own;
+//      rounded to bf16, to a buffer of its own. Where the caller asks for
+//      it, the running state after the last chunk (the state at step L)
+//      goes to h_final [B, H, P, N] in fp32; it is held in a register, so
+//      neither the fp32 overwrite nor the bf16 copy has lost it;
 //   3. chunk_output (grid n_chunks x B*H):
 //      y = (C B^T . exp(cum_i - cum_j) . dt_j, for j <= i) X
 //          + exp(cum_i) (C h_in[c]^T).
@@ -407,7 +410,7 @@ __device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
 template <typename OutT>
 __global__ void __launch_bounds__(kPassThreads)
 state_pass(const float* states, const float* __restrict__ totals,
-           OutT* hin, int nc, int NPe) {
+           OutT* hin, float* __restrict__ hfinal, int nc, int P, int NPe) {
   const int e = blockIdx.x * kPassThreads + threadIdx.x;
   if (e >= NPe) return;
   // this form, with B*H*nc < 2^31 checked at launch, ran 2.4x faster in
@@ -435,6 +438,11 @@ state_pass(const float* states, const float* __restrict__ totals,
       run = fmaf(expf(d[u]), run, v[u]);
     }
   }
+  // element e is (n, p) = (e / P, e % P) of the [N][P] state; h_final is
+  // [P][N] per (b, h), as the model's cache holds it
+  if (hfinal)
+    hfinal[blockIdx.y * (int64_t)NPe + (e % P) * (int64_t)(NPe / P) + e / P] =
+        run;
 }
 
 // ---- pass 3: chunk outputs ----------------------------------------------------
@@ -737,19 +745,20 @@ int set_smem(K kernel, size_t bytes) {
 
 template <typename OutT>
 int launch_state_pass(const float* states, const float* totals, OutT* hin,
-                      int64_t BH, int nc, int P, int N, cudaStream_t stream) {
+                      float* hfinal, int64_t BH, int nc, int P, int N,
+                      cudaStream_t stream) {
   const int NPe = P * N;
   const dim3 grid((unsigned)((NPe + kPassThreads - 1) / kPassThreads),
                   (unsigned)BH);
-  state_pass<OutT><<<grid, kPassThreads, 0, stream>>>(states, totals, hin, nc,
-                                                       NPe);
+  state_pass<OutT><<<grid, kPassThreads, 0, stream>>>(states, totals, hin,
+                                                       hfinal, nc, P, NPe);
   return (int)cudaGetLastError();
 }
 
 int launch_f32(const float* x, const float* dt, const float* A,
-               const float* Bm, const float* Cm, float* y, float* states,
-               float* totals, int64_t B, int64_t L, int64_t H, int64_t G,
-               int P, int N, cudaStream_t stream) {
+               const float* Bm, const float* Cm, float* y, float* hfinal,
+               float* states, float* totals, int64_t B, int64_t L, int64_t H,
+               int64_t G, int P, int N, cudaStream_t stream) {
   const int nc = (int)((L + kQ - 1) / kQ);
   const int PP = round_up(P, 64), NP = round_up(N, 64), N4 = round_up(N, 4);
   const size_t s1 = sizeof(float) * ((size_t)kQ * (PP + NP) + 3 * kQ);
@@ -763,8 +772,8 @@ int launch_f32(const float* x, const float* dt, const float* A,
   chunk_state_fma<<<grid, kFmaThreads, s1, stream>>>(x, dt, A, Bm, states,
                                                      totals, L, H, G, P, N);
   if ((err = (int)cudaGetLastError())) return err;
-  if ((err = launch_state_pass(states, totals, states, B * H, nc, P, N,
-                               stream)))
+  if ((err = launch_state_pass(states, totals, states, hfinal, B * H, nc, P,
+                               N, stream)))
     return err;
   chunk_output_fma<<<grid, kFmaThreads, s3, stream>>>(x, dt, A, Bm, Cm,
                                                       states, y, L, H, G, P, N);
@@ -773,9 +782,9 @@ int launch_f32(const float* x, const float* dt, const float* A,
 
 int launch_bf16(const __nv_bfloat16* x, const float* dt, const float* A,
                 const __nv_bfloat16* Bm, const __nv_bfloat16* Cm,
-                __nv_bfloat16* y, float* states, __nv_bfloat16* hin,
-                float* totals, int64_t B, int64_t L, int64_t H, int64_t G,
-                int P, int N, cudaStream_t stream) {
+                __nv_bfloat16* y, float* hfinal, float* states,
+                __nv_bfloat16* hin, float* totals, int64_t B, int64_t L,
+                int64_t H, int64_t G, int P, int N, cudaStream_t stream) {
   const int nc = (int)((L + kQ - 1) / kQ);
   const int NC = round_up(N, 64), PC = round_up(P, 64), NK = round_up(N, 16);
   // 1,024 bytes of slack to align the swizzled tiles
@@ -789,7 +798,8 @@ int launch_bf16(const __nv_bfloat16* x, const float* dt, const float* A,
   chunk_state_wgmma<<<grid, kWgThreads, s1, stream>>>(
       x, dt, A, Bm, states, totals, L, H, G, P, N);
   if ((err = (int)cudaGetLastError())) return err;
-  if ((err = launch_state_pass(states, totals, hin, B * H, nc, P, N, stream)))
+  if ((err = launch_state_pass(states, totals, hin, hfinal, B * H, nc, P, N,
+                               stream)))
     return err;
   chunk_output_wgmma<<<grid, kWgThreads, s3, stream>>>(
       x, dt, A, Bm, Cm, hin, y, L, H, G, P, N);
@@ -809,12 +819,13 @@ int ssd_scan_chunk() { return kQ; }
 // x, y: [B, L, H, P]; dt: [B, L, H] f32; A: [H] f32; Bm, Cm: [B, L, G, N];
 // all contiguous; x, Bm, Cm and y of one type (dtype 0 f32, 1 bf16); H a
 // multiple of G; 1 <= P, N <= 128; B * H <= 65535; B * H * n_chunks <
-// 2^31.
+// 2^31. h_final, f32 [B, H, P, N], receives the state after step L; null
+// where the caller does not want it.
 int ssd_scan_forward(const void* x, const void* dt, const void* A,
-                     const void* Bm, const void* Cm, void* y, void* states,
-                     void* hin, void* totals, int dtype, int64_t B, int64_t L,
-                     int64_t H, int64_t G, int64_t P, int64_t N,
-                     void* stream) {
+                     const void* Bm, const void* Cm, void* y, void* h_final,
+                     void* states, void* hin, void* totals, int dtype,
+                     int64_t B, int64_t L, int64_t H, int64_t G, int64_t P,
+                     int64_t N, void* stream) {
   if (P < 1 || N < 1 || P > kMaxDim || N > kMaxDim ||
       B * H * ((L + kQ - 1) / kQ) >= (int64_t{1} << 31))
     return (int)cudaErrorInvalidValue;
@@ -823,17 +834,18 @@ int ssd_scan_forward(const void* x, const void* dt, const void* A,
   const float* Af = static_cast<const float*>(A);
   float* st = static_cast<float*>(states);
   float* tot = static_cast<float*>(totals);
+  float* hf = static_cast<float*>(h_final);
   switch (dtype) {
     case kF32:
       return launch_f32(static_cast<const float*>(x), dtf, Af,
                         static_cast<const float*>(Bm),
                         static_cast<const float*>(Cm), static_cast<float*>(y),
-                        st, tot, B, L, H, G, (int)P, (int)N, s);
+                        hf, st, tot, B, L, H, G, (int)P, (int)N, s);
     case kBF16:
       return launch_bf16(static_cast<const __nv_bfloat16*>(x), dtf, Af,
                          static_cast<const __nv_bfloat16*>(Bm),
                          static_cast<const __nv_bfloat16*>(Cm),
-                         static_cast<__nv_bfloat16*>(y), st,
+                         static_cast<__nv_bfloat16*>(y), hf, st,
                          static_cast<__nv_bfloat16*>(hin), tot, B, L, H, G,
                          (int)P, (int)N, s);
     default:

@@ -1,12 +1,15 @@
 """Mamba-2 SSD chunk scan on the card.
 
-``ssd_scan_blh(x, dt, A, B_, C)`` launches the CUDA C++ kernel of
+``ssd_scan_blh(x, dt, A, B_, C, return_state=)`` launches the CUDA C++
+kernel of
 ``kernels/csrc/ssd_scan.cu``, the port of the JAX package's Pallas
 ``ssd_scan_bhl``: three launches (chunk states, state passing, chunk
 outputs) over chunks of the kernel's own length (``ssd_scan_chunk()`` in
 the source), with the states' scratch allocated here. bf16 goes through
 ``ssd_scan_wgmma`` (the chunk products on the tensor cores), float32
-through ``ssd_scan_fma`` (on the CUDA cores). It reads the model
+through ``ssd_scan_fma`` (on the CUDA cores). With ``return_state`` the
+state-passing launch also writes the state after the last step, float32
+[B, H, P, N], as the model's prefill caches it. It reads the model
 layout (x [B, L, H, P], dt [B, L, H], A [H], B_/C [B, L, G, N]) where it
 lies and reads B_ and C by group, so nothing is transposed, repeated or
 padded first. It takes CUDA tensors only and raises on what the kernel
@@ -30,8 +33,8 @@ _MAX_GRID_Y = 65535
 def _library() -> ctypes.CDLL:
     lib = build.load("ssd_scan")
     fn = lib.ssd_scan_forward
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] + [ctypes.c_int64] * 6 + [
-        ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] + [
+        ctypes.c_int64] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.ssd_scan_chunk.argtypes = []
     lib.ssd_scan_chunk.restype = ctypes.c_int
@@ -71,12 +74,14 @@ def _check(x, dt, A, B_, C, dtype: torch.dtype) -> None:
         raise ValueError("ssd_scan_blh's kernel needs contiguous x, B_, C")
 
 
-def _launch(x, dt, A, B_, C) -> torch.Tensor:
+def _launch(x, dt, A, B_, C, return_state: bool):
     Bb, L, H, P = x.shape
     G, N = B_.shape[2], B_.shape[3]
     dt32 = dt.float().contiguous()
     A32 = A.float().contiguous()
     out = torch.empty_like(x)
+    h_final = torch.empty((Bb, H, P, N), dtype=torch.float32,
+                          device=x.device) if return_state else None
     lib = _library()
     n_chunks = -(-L // lib.ssd_scan_chunk())
     states = torch.empty(Bb * H * n_chunks * N * P, dtype=torch.float32,
@@ -91,46 +96,49 @@ def _launch(x, dt, A, B_, C) -> torch.Tensor:
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.ssd_scan_forward(
             x.data_ptr(), dt32.data_ptr(), A32.data_ptr(), B_.data_ptr(),
-            C.data_ptr(), out.data_ptr(), states.data_ptr(), hin.data_ptr(),
-            totals.data_ptr(), _DTYPE_CODE[x.dtype], Bb, L, H, G, P, N,
-            stream)
+            C.data_ptr(), out.data_ptr(),
+            h_final.data_ptr() if return_state else None, states.data_ptr(),
+            hin.data_ptr(), totals.data_ptr(), _DTYPE_CODE[x.dtype], Bb, L, H,
+            G, P, N, stream)
     if err:
         raise RuntimeError("ssd_scan kernel launch failed: "
                            f"{lib.ssd_scan_error_string(err).decode()}")
-    return out
+    return (out, h_final) if return_state else out
 
 
-def ssd_scan_wgmma(x, dt, A, B_, C) -> torch.Tensor:
+def ssd_scan_wgmma(x, dt, A, B_, C, return_state: bool = False):
     """The bf16 passes (chunk products by wgmma) on inputs as
     ``ssd_scan_blh`` takes them, x, B_, C bf16. Counted in
     ``ssd_scan_wgmma.launches``."""
     _check(x, dt, A, B_, C, torch.bfloat16)
-    out = _launch(x, dt, A, B_, C)
+    out = _launch(x, dt, A, B_, C, return_state)
     ssd_scan_wgmma.launches += 1
     return out
 
 
-def ssd_scan_fma(x, dt, A, B_, C) -> torch.Tensor:
+def ssd_scan_fma(x, dt, A, B_, C, return_state: bool = False):
     """The float32 passes (CUDA-core FMA) on inputs as ``ssd_scan_blh``
     takes them, x, B_, C float32. Counted in ``ssd_scan_fma.launches``."""
     _check(x, dt, A, B_, C, torch.float32)
-    out = _launch(x, dt, A, B_, C)
+    out = _launch(x, dt, A, B_, C, return_state)
     ssd_scan_fma.launches += 1
     return out
 
 
 def ssd_scan_blh(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                 B_: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+                 B_: torch.Tensor, C: torch.Tensor,
+                 return_state: bool = False):
     """x [B,L,H,P]; dt [B,L,H]; A [H]; B_/C [B,L,G,N], CUDA tensors on one
     device, x, B_, C contiguous and of one type (float32 or bfloat16),
-    P, N <= 128 → y [B,L,H,P] of x's type, without the D·x skip: bf16
+    P, N <= 128 → y [B,L,H,P] of x's type, without the D·x skip, and with
+    ``return_state`` also the state after step L, float32 [B,H,P,N]: bf16
     through ``ssd_scan_wgmma``, anything else through ``ssd_scan_fma``,
     which raises unless it is float32. dt and A are widened to float32
     here. The states between the passes take 4·B·H·ceil(L / chunk)·N·P
     bytes of scratch (and half as much again in bf16). Counted in
     ``ssd_scan_blh.launches`` as well as in the kernel's own counter."""
     kernel = ssd_scan_wgmma if x.dtype == torch.bfloat16 else ssd_scan_fma
-    out = kernel(x, dt, A, B_, C)
+    out = kernel(x, dt, A, B_, C, return_state)
     ssd_scan_blh.launches += 1
     return out
 

@@ -1,10 +1,13 @@
-"""The public SSD scan entry point, as the custom op
-``repro_torch::ssd_scan``: on a CUDA tensor it runs the kernel
-(``kernel.ssd_scan_blh``), on a CPU tensor the plain version
+"""The public SSD scan entry point, as the custom ops
+``repro_torch::ssd_scan`` (y) and ``repro_torch::ssd_scan_state`` (y and
+the final state, for a prefill that caches it): on a CUDA tensor they run
+the kernel (``kernel.ssd_scan_blh``), on a CPU tensor the plain version
 (``ref.ssd_scan_reference``). ``torch.utils.flop_counter.FlopCounterMode``
-counts the op by ``ssd_scan_flops``, not by what either implementation
+counts both by ``ssd_scan_flops``, not by what either implementation
 runs inside."""
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 from torch.utils.flop_counter import register_flop_formula
@@ -39,19 +42,35 @@ def ssd_scan_flops(x_shape, b_shape, chunk: int) -> int:
     return Bb * H * (-(-L // Q)) * per_chunk
 
 
-@register_flop_formula(torch.ops.repro_torch.ssd_scan)
+@torch.library.custom_op("repro_torch::ssd_scan_state", mutates_args=(),
+                         device_types="cpu")
+def _ssd_scan_state(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                    B_: torch.Tensor, C: torch.Tensor, chunk: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return ssd_scan_reference(x, dt, A, B_, C, return_state=True)
+
+
+@_ssd_scan_state.register_kernel("cuda")
+def _(x, dt, A, B_, C, chunk):
+    return ssd_scan_blh(x, dt, A, B_, C, return_state=True)
+
+
+@register_flop_formula([torch.ops.repro_torch.ssd_scan,
+                        torch.ops.repro_torch.ssd_scan_state])
 def _flops(x_shape, dt_shape, a_shape, b_shape, c_shape, chunk, *args,
            **kwargs) -> int:
     return ssd_scan_flops(x_shape, b_shape, chunk)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-             B_: torch.Tensor, C: torch.Tensor, *,
-             chunk: int = 128) -> torch.Tensor:
+             B_: torch.Tensor, C: torch.Tensor, *, chunk: int = 128,
+             return_state: bool = False):
     """Model layout (matches the JAX package's models/ssm.ssd_chunked):
     x [B, L, H, P]; dt [B, L, H] (post-softplus); A [H] (negative);
     B_/C [B, L, G, N] (G groups broadcast over H). Returns y [B, L, H, P]
-    of x's type (without the D·x skip, which the caller adds). Runs where
+    of x's type (without the D·x skip, which the caller adds); with
+    ``return_state`` also the state after the last step, float32
+    [B, H, P, N] (``ssd_scan_state``). Runs where
     the tensors lie. ``chunk`` does not change what is computed: the CUDA
     kernel runs its own 64-step chunks and the plain version the
     recurrence. It sets only the FLOPs that ``FlopCounterMode`` counts the
@@ -59,4 +78,6 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     least work instead (4·N·P per step and head, see chip_smoke.py)."""
     if chunk < 1:
         raise ValueError(f"chunk must be positive, got {chunk}")
+    if return_state:
+        return torch.ops.repro_torch.ssd_scan_state(x, dt, A, B_, C, chunk)
     return torch.ops.repro_torch.ssd_scan(x, dt, A, B_, C, chunk)

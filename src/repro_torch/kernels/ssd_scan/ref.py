@@ -7,9 +7,11 @@ import torch
 
 
 def ssd_scan_reference(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                       B_: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+                       B_: torch.Tensor, C: torch.Tensor,
+                       return_state: bool = False):
     """x [B,L,H,P]; dt [B,L,H]; A [H]; B_/C [B,L,G,N] → y [B,L,H,P] of
-    x's type, computed in fp32.
+    x's type, computed in fp32; with ``return_state`` also the final state
+    h_L, float32 [B,H,P,N].
 
     h_t = exp(dt_t A) h_{t-1} + dt_t · (B_t ⊗ x_t);  y_t = C_t · h_t
     """
@@ -27,4 +29,5 @@ def ssd_scan_reference(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                * xf[:, t][..., None])                       # [B,H,P,N]
         h = h * decay + dBx
         ys.append(torch.einsum("bhpn,bhn->bhp", h, Ch[:, t]))
-    return torch.stack(ys, dim=1).to(x.dtype)               # [B,L,H,P]
+    y = torch.stack(ys, dim=1).to(x.dtype)                  # [B,L,H,P]
+    return (y, h) if return_state else y

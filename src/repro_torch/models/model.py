@@ -1,0 +1,328 @@
+"""Model assembly: decoder-only LMs (dense, MoE, hybrid, SSM, VLM) and the
+whisper encoder-decoder, as ``nn.Module``s.
+
+The port of the JAX package's ``models/model.py``. Where the reference
+stacks each pattern position's parameters [R, ...] and scans over the
+groups, the port holds one module per layer in an ``nn.ModuleList``, in
+``cfg.layer_kinds()`` order, and loops over them; caches are one dict per
+layer. Parameter names follow the reference's tree (``blocks.3.attn.wq``
+is ``params["blocks"][3 % P]["attn"]["wq"][3 // P]`` for a pattern of P
+layers), which ``convert.lm_params_from_jax`` relies on. Without a mesh
+the reference's sharding constraints are the identity, so there are none
+here.
+
+``forward`` runs the full sequence (training's logits); ``prefill``
+ingests a prompt into the caches and returns the last position's logits;
+``decode_step`` takes one token per sequence. Attention over a sequence
+runs the port's flash attention op and the Mamba-2 scan its SSD op, both
+kernels on the card.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs import ArchConfig
+from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
+
+Batch = Dict[str, torch.Tensor]
+Cache = List[Dict[str, torch.Tensor]]
+
+
+# ---------------------------------------------------------------------------
+# Modules
+# ---------------------------------------------------------------------------
+class Block(nn.Module):
+    """One decoder layer of kind ``"<mixer>+<ff>"``: attn or ssm, then
+    mlp, moe or none."""
+
+    def __init__(self, cfg: ArchConfig, kind: str,
+                 generator: torch.Generator):
+        super().__init__()
+        g, dev = generator, generator.device
+        self.kind = kind
+        mixer, ff = kind.split("+")
+        self.ln1 = L.RMSNorm(cfg.d_model, dev)
+        if mixer == "attn":
+            self.attn = L.Attention(g, cfg.d_model, cfg.n_heads,
+                                    cfg.n_kv_heads, cfg.head_dim, cfg.qk_norm)
+        else:
+            self.ssm = SSM.SSM(g, cfg.d_model, cfg.ssm)
+        if ff in ("mlp", "moe"):
+            self.ln2 = L.RMSNorm(cfg.d_model, dev)
+        if ff == "mlp":
+            self.mlp = L.MLP(g, cfg.d_model, cfg.d_ff)
+        elif ff == "moe":
+            self.moe = MOE.MoE(g, cfg.d_model, cfg.moe)
+
+
+class DecXBlock(nn.Module):
+    """Whisper decoder layer: self-attention, cross-attention, MLP."""
+
+    def __init__(self, cfg: ArchConfig, generator: torch.Generator):
+        super().__init__()
+        g, dev = generator, generator.device
+        self.kind = "attn+mlp"
+
+        def attn():
+            return L.Attention(g, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                               cfg.head_dim, cfg.qk_norm)
+        self.ln1 = L.RMSNorm(cfg.d_model, dev)
+        self.attn = attn()
+        self.ln_x = L.RMSNorm(cfg.d_model, dev)
+        self.xattn = attn()
+        self.ln2 = L.RMSNorm(cfg.d_model, dev)
+        self.mlp = L.MLP(g, cfg.d_model, cfg.d_ff)
+
+
+class LM(nn.Module):
+    """The parameters of one architecture, float32, on the generator's
+    device."""
+
+    def __init__(self, cfg: ArchConfig, generator: torch.Generator):
+        super().__init__()
+        g, dev = generator, generator.device
+        self.cfg = cfg
+        self.embed = L.init_embedding(g, cfg.padded_vocab, cfg.d_model)
+        self.final_norm = L.RMSNorm(cfg.d_model, dev)
+        if not cfg.tie_embeddings:
+            self.unembed = nn.Parameter(torch.randn(
+                (cfg.d_model, cfg.padded_vocab), generator=g, device=dev)
+                * (cfg.d_model ** -0.5))
+        if cfg.frontend is not None:
+            self.frontend_proj = L._dense_init(g, (cfg.d_model, cfg.d_model),
+                                               cfg.d_model)
+        if cfg.enc_dec is not None:
+            self.enc_blocks = nn.ModuleList(
+                Block(cfg, "attn+mlp", g)
+                for _ in range(cfg.enc_dec.n_enc_layers))
+            self.enc_norm = L.RMSNorm(cfg.d_model, dev)
+            self.blocks = nn.ModuleList(DecXBlock(cfg, g)
+                                        for _ in range(cfg.n_layers))
+        else:
+            self.blocks = nn.ModuleList(Block(cfg, kind, g)
+                                        for kind in cfg.layer_kinds())
+
+    def unembedding(self) -> torch.Tensor:
+        return self.embed if self.cfg.tie_embeddings else self.unembed
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator) -> LM:
+    """The model of ``cfg`` with its weights drawn from ``generator`` (on
+    the generator's device), as the JAX package draws them: normal ·
+    1/sqrt(fan-in) for projections, 0.02 · normal for the embedding,
+    ones for norms."""
+    return LM(cfg, generator)
+
+
+# ---------------------------------------------------------------------------
+# Embedding front
+# ---------------------------------------------------------------------------
+def _embed_inputs(cfg: ArchConfig, model: LM, batch: Batch,
+                  dtype) -> torch.Tensor:
+    h = L.embed_tokens(model.embed, batch["tokens"], dtype)
+    if cfg.frontend == "patch_stub":
+        n = cfg.n_prefix_tokens
+        patches = torch.einsum("bnd,de->bne", batch["patches"].to(dtype),
+                               model.frontend_proj.to(dtype))
+        h = torch.cat([patches, h[:, n:]], dim=1)
+    if cfg.positional == "sinusoidal":
+        h = h + L.sinusoidal_positions(h.shape[1], cfg.d_model,
+                                       device=h.device).to(dtype)
+    return h
+
+
+def _logits(cfg: ArchConfig, model: LM, h: torch.Tensor) -> torch.Tensor:
+    h = model.final_norm(h, cfg.norm_eps)
+    return L.logits_fwd(model.unembedding(), h, cfg.tie_embeddings,
+                        cfg.vocab_size)
+
+
+# ---------------------------------------------------------------------------
+# Block application (full sequence: forward / prefill)
+# ---------------------------------------------------------------------------
+def _apply_block(cfg: ArchConfig, blk: Block, h: torch.Tensor,
+                 aux: torch.Tensor, *, prefill: bool, cache_len: int = 0):
+    """Returns (h, aux, the layer's cache or None)."""
+    mixer, ff = blk.kind.split("+")
+    new_cache = None
+    x = blk.ln1(h, cfg.norm_eps)
+    if mixer == "attn":
+        kw = dict(theta=cfg.rope_theta, use_rope=cfg.positional == "rope")
+        if prefill:
+            out, (k, v) = L.attention_prefill(blk.attn, x,
+                                              cache_len=cache_len, **kw)
+            new_cache = {"k": k, "v": v}
+        else:
+            out = L.attention_fwd(blk.attn, x, causal=True, **kw)
+    elif prefill:
+        out, new_cache = SSM.ssm_fwd(blk.ssm, x, return_state=True)
+    else:
+        out = SSM.ssm_fwd(blk.ssm, x)
+    h = h + out
+    if ff == "mlp":
+        h = h + blk.mlp(blk.ln2(h, cfg.norm_eps))
+    elif ff == "moe":
+        y, a = MOE.moe_fwd(blk.moe, blk.ln2(h, cfg.norm_eps))
+        h = h + y
+        aux = aux + a
+    return h, aux, new_cache
+
+
+def _cross_kv(xattn: L.Attention, enc_h: torch.Tensor):
+    kx = torch.einsum("bsd,dhk->bshk", enc_h, xattn.wk.to(enc_h.dtype))
+    vx = torch.einsum("bsd,dhk->bshk", enc_h, xattn.wv.to(enc_h.dtype))
+    return kx, vx
+
+
+def _encoder_fwd(cfg: ArchConfig, model: LM, batch: Batch,
+                 dtype) -> torch.Tensor:
+    frames = batch["frames"].to(dtype)
+    h = torch.einsum("bsd,de->bse", frames, model.frontend_proj.to(dtype))
+    h = h + L.sinusoidal_positions(h.shape[1], cfg.d_model,
+                                   device=h.device).to(dtype)
+    for blk in model.enc_blocks:
+        x = blk.ln1(h, cfg.norm_eps)
+        h = h + L.attention_fwd(blk.attn, x, theta=cfg.rope_theta,
+                                causal=False, use_rope=False)
+        h = h + blk.mlp(blk.ln2(h, cfg.norm_eps))
+    return model.enc_norm(h, cfg.norm_eps)
+
+
+def _dec_xblock(cfg: ArchConfig, blk: DecXBlock, h: torch.Tensor,
+                enc_h: torch.Tensor, cache_len: Optional[int]):
+    """One whisper decoder layer over a sequence; with ``cache_len`` (the
+    prefill) also its cache."""
+    x = blk.ln1(h, cfg.norm_eps)
+    kw = dict(theta=cfg.rope_theta, use_rope=False)
+    cache = None
+    if cache_len is None:
+        h = h + L.attention_fwd(blk.attn, x, causal=True, **kw)
+    else:
+        out, (k, v) = L.attention_prefill(blk.attn, x, cache_len=cache_len,
+                                          **kw)
+        h = h + out
+    x = blk.ln_x(h, cfg.norm_eps)
+    kx, vx = _cross_kv(blk.xattn, enc_h)
+    h = h + L.attention_fwd(blk.xattn, x, causal=False, kv_override=(kx, vx),
+                            **kw)
+    h = h + blk.mlp(blk.ln2(h, cfg.norm_eps))
+    if cache_len is not None:
+        cache = {"k": k, "v": v, "xk": kx, "xv": vx}
+    return h, cache
+
+
+# ---------------------------------------------------------------------------
+# Forward — logits over the full sequence
+# ---------------------------------------------------------------------------
+def forward(cfg: ArchConfig, model: LM, batch: Batch, *,
+            compute_dtype=torch.bfloat16, q_chunk: int = 512
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """→ (logits [B, S, V] float32, aux loss). ``q_chunk`` changes
+    nothing (the JAX package's query blocking)."""
+    dtype = compute_dtype
+    h = _embed_inputs(cfg, model, batch, dtype)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if cfg.enc_dec is not None:
+        enc_h = _encoder_fwd(cfg, model, batch, dtype)
+        for blk in model.blocks:
+            h, _ = _dec_xblock(cfg, blk, h, enc_h, None)
+    else:
+        for blk in model.blocks:
+            h, aux, _ = _apply_block(cfg, blk, h, aux, prefill=False)
+    return _logits(cfg, model, h), aux
+
+
+# ---------------------------------------------------------------------------
+# Caches
+# ---------------------------------------------------------------------------
+def init_cache(cfg: ArchConfig, batch: int, cache_len: int, dtype,
+               device=None) -> Cache:
+    """Zeroed caches, one dict per layer: attention {"k", "v"} [B,
+    cache_len, KV, dh], SSM {"conv", "h"}, whisper's decoder also its
+    cross-attention {"xk", "xv"} over the encoder's positions."""
+    def kv(s):
+        return torch.zeros((batch, s, cfg.n_kv_heads, cfg.head_dim),
+                           dtype=dtype, device=device)
+    if cfg.enc_dec is not None:
+        e = cfg.enc_dec
+        return [{"k": kv(cache_len), "v": kv(cache_len), "xk": kv(e.enc_seq),
+                 "xv": kv(e.enc_seq)} for _ in range(cfg.n_layers)]
+    caches = []
+    for kind in cfg.layer_kinds():
+        if kind.startswith("attn"):
+            caches.append({"k": kv(cache_len), "v": kv(cache_len)})
+        else:
+            caches.append(SSM.init_ssm_cache(batch, cfg.d_model, cfg.ssm,
+                                             dtype, device))
+    return caches
+
+
+# ---------------------------------------------------------------------------
+# Prefill — the full forward, writing the caches; the last logits
+# ---------------------------------------------------------------------------
+@torch.no_grad()
+def prefill(cfg: ArchConfig, model: LM, batch: Batch, cache_len: int, *,
+            compute_dtype=torch.bfloat16, q_chunk: int = 512
+            ) -> Tuple[torch.Tensor, Cache]:
+    """→ (logits [B, V] of the last position, caches of ``cache_len``
+    positions)."""
+    dtype = compute_dtype
+    h = _embed_inputs(cfg, model, batch, dtype)
+    caches = []
+    if cfg.enc_dec is not None:
+        enc_h = _encoder_fwd(cfg, model, batch, dtype)
+        for blk in model.blocks:
+            h, c = _dec_xblock(cfg, blk, h, enc_h, cache_len)
+            caches.append(c)
+    else:
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        for blk in model.blocks:
+            h, aux, c = _apply_block(cfg, blk, h, aux, prefill=True,
+                                     cache_len=cache_len)
+            caches.append(c)
+    return _logits(cfg, model, h[:, -1:])[:, 0], caches
+
+
+# ---------------------------------------------------------------------------
+# Decode — one token with the caches
+# ---------------------------------------------------------------------------
+@torch.no_grad()
+def decode_step(cfg: ArchConfig, model: LM, cache: Cache,
+                token: torch.Tensor, pos: int, *,
+                compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, Cache]:
+    """token: [B, 1]; pos: the write index → (logits [B, V], caches).
+    Attention caches are written at ``pos`` in place; SSM layers get new
+    state tensors."""
+    dtype = compute_dtype
+    h = L.embed_tokens(model.embed, token, dtype)
+    if cfg.positional == "sinusoidal":
+        h = h + L.sinusoidal_positions(1, cfg.d_model, offset=pos,
+                                       device=h.device).to(dtype)
+    new_caches = []
+    for blk, c in zip(model.blocks, cache):
+        mixer, ff = blk.kind.split("+")
+        x = blk.ln1(h, cfg.norm_eps)
+        if mixer == "attn":
+            out, (k, v) = L.attention_decode(
+                blk.attn, x, (c["k"], c["v"]), pos, theta=cfg.rope_theta,
+                use_rope=cfg.positional == "rope")
+            h = h + out
+            new = {**c, "k": k, "v": v}
+        else:
+            out, new = SSM.ssm_decode(blk.ssm, x, c)
+            h = h + out
+        if cfg.enc_dec is not None:
+            x = blk.ln_x(h, cfg.norm_eps)
+            h = h + L.attention_readonly(blk.xattn, x, (c["xk"], c["xv"]))
+        if ff == "mlp":
+            h = h + blk.mlp(blk.ln2(h, cfg.norm_eps))
+        elif ff == "moe":
+            y, _ = MOE.moe_fwd(blk.moe, blk.ln2(h, cfg.norm_eps))
+            h = h + y
+        new_caches.append(new)
+    return _logits(cfg, model, h)[:, 0], new_caches

@@ -10,11 +10,15 @@ per ingested record. Each entry point is a custom op with its own FLOP
 formula (``kernels/<name>/ops.py``), so the count is the function's work
 whatever runs inside it, and it is the same on the CPU and on the card.
 Each operator is dry-run in float32 and in bfloat16, the two types its
-kernels take, since on the card each type has a kernel of its own (wgmma
-for bf16, CUDA-core FMA for float32). The bf16 pass is there so that the
-calibration path launches every kernel, until the port's language-model
-stack runs bf16 attention; the FLOP formulas depend only on shapes, so it
-cannot change the count, and the float32 pass's count is the one kept.
+kernels take, since on the card each type has a kernel of its own: flash
+attention runs wgmma in bf16 and 3xTF32 on the tensor cores in float32,
+the SSD wgmma in bf16 and CUDA-core FMA in float32. The bf16 pass is kept
+so that a calibration launches the kernels of both types, which
+``chip_smoke.py``'s ``calibrate`` and ``scenario`` phases count on; the
+language models' serving path (``repro_torch.models``) also launches the
+bf16 kernels now, but a calibration does not run it. The FLOP formulas
+depend only on shapes, so the bf16 pass cannot change the count, and the
+float32 pass's count is the one kept.
 That number feeds the roofline cost cells
 (:func:`repro_torch.scenario.engine.analytics_cost_model`) the DC
 simulator prices VDC steps with.

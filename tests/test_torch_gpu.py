@@ -1,5 +1,7 @@
 """The port's CUDA kernels on a card: each against its plain torch version,
-and the calibrator on the card against the calibrator on the CPU.
+the calibrator on the card against the calibrator on the CPU, and the
+language models' serving path on the card against the same port on the
+CPU.
 
 These tests need a CUDA card and skip elsewhere; the fixture decides, so
 every process collects the same tests. The file imports no JAX, so it
@@ -7,6 +9,9 @@ runs where only PyTorch is installed:
 
     python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import copy
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -27,6 +32,9 @@ from repro_torch.kernels.window_agg import (window_aggregate,
                                             window_aggregate_reference)
 from repro_torch.kernels.window_agg.kernel import (segment_reduce,
                                                    segment_reduce_plain)
+from repro_torch.configs import get_arch
+from repro_torch.data import make_batch
+from repro_torch.models import model as M
 from repro_torch.pipeline import HybridExecutor
 from repro_torch.scenario import KernelCalibrator
 from repro_torch.scenario.calibrate import window_ratio
@@ -554,3 +562,100 @@ def test_forked_parallel_evaluator_after_cuda(cuda):
     assert (b.plan.key(), b.result.vos) == (a.plan.key(), a.result.vos)
     assert (pev.hits, pev.misses, pev.history) == (ser.hits, ser.misses,
                                                    ser.history)
+
+
+# ------------------------------------------------ the LM serving path
+def _lm_case(arch):
+    """A reduced() config the card runs: qwen3-1.7b with head dim 64 (the
+    flash kernels take 32, 64 and 128; reduced() has 16), mamba2-1.3b as
+    it is (P = N = 16)."""
+    cfg = get_arch(arch).reduced()
+    return dataclasses.replace(cfg, d_head=64) if cfg.ssm is None else cfg
+
+
+def _lm_counters(arch, dtype):
+    if arch.startswith("mamba"):
+        return ssd_scan_wgmma if dtype == "bfloat16" else ssd_scan_fma
+    return (flash_attention_wgmma if dtype == "bfloat16"
+            else flash_attention_3xtf32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "mamba2-1.3b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lm_prefill_and_decode_on_the_card_match_the_cpu(cuda, arch, dtype):
+    """The same weights on the card (the kernels) and on the CPU (their
+    plain versions): prefill logits, the caches' shapes and one decode
+    step, fp32 within atol 2e-3 / rtol 1e-3, bf16 within 5e-2 ·
+    max|logits| of each row. The prefill launches the path's kernel once
+    per layer; decode launches none."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _lm_case(arch)
+    dt = getattr(torch, dtype)
+    model = M.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    cpu_model = copy.deepcopy(model).cpu()
+    bd = make_batch(cfg, 65, 2, 0)
+    bd.pop("labels")
+    tb = {k: torch.as_tensor(v) for k, v in bd.items()}
+    pre = {k: (v[:, :64] if k == "tokens" else v) for k, v in tb.items()}
+    counter = _lm_counters(arch, dtype)
+    before = counter.launches
+    logits, cache = M.prefill(cfg, model, {k: v.to(cuda)
+                                           for k, v in pre.items()},
+                              cache_len=72, compute_dtype=dt)
+    assert counter.launches - before == cfg.n_layers
+    ref, ref_cache = M.prefill(cfg, cpu_model, pre, cache_len=72,
+                               compute_dtype=dt)
+    before = counter.launches
+    nxt = tb["tokens"][:, 64:]
+    logits1, _ = M.decode_step(cfg, model, cache, nxt.to(cuda), 64,
+                               compute_dtype=dt)
+    assert counter.launches == before
+    ref1, _ = M.decode_step(cfg, cpu_model, ref_cache, nxt, 64,
+                            compute_dtype=dt)
+    V = cfg.vocab_size
+    for got, want in ((logits, ref), (logits1, ref1)):
+        got, want = got.cpu()[:, :V], want[:, :V]
+        assert bool(torch.isfinite(got).all())
+        if dtype == "float32":
+            torch.testing.assert_close(got, want, atol=2e-3, rtol=1e-3)
+        else:
+            row = want.abs().amax(-1, keepdim=True)
+            assert bool(((got - want).abs() <= 5e-2 * row).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,L,H,P,G,N", [(2, 200, 4, 16, 2, 32),
+                                         (1, 256, 4, 64, 1, 128),
+                                         (1, 100, 3, 7, 1, 9)])
+def test_ssd_final_state_matches_plain(cuda, dtype, B, L, H, P, G, N):
+    """``ssd_scan_blh(return_state=True)``: y as without the state, and
+    the state after step L (float32 [B, H, P, N]) within the sweep's limit
+    of the plain recurrence's."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    dt = getattr(torch, dtype)
+    x = torch.randn(B, L, H, P, device=cuda, generator=g).to(dt)
+    dtt = torch.nn.functional.softplus(torch.randn(B, L, H, device=cuda,
+                                                   generator=g))
+    A = -torch.exp(torch.randn(H, device=cuda, generator=g) * 0.5)
+    Bm = (torch.randn(B, L, G, N, device=cuda, generator=g) * 0.3).to(dt)
+    Cm = (torch.randn(B, L, G, N, device=cuda, generator=g) * 0.3).to(dt)
+    y, h = ssd_scan_blh(x, dtt, A, Bm, Cm, return_state=True)
+    assert torch.equal(y, ssd_scan_blh(x, dtt, A, Bm, Cm))
+    y_ref, h_ref = ssd_scan_reference(x, dtt, A, Bm, Cm, return_state=True)
+    assert h.shape == (B, H, P, N) and h.dtype == torch.float32
+    for got, ref in ((y.float(), y_ref.float()), (h, h_ref)):
+        scale = float(ref.abs().max())
+        assert float((got - ref).abs().max()) <= SSD_RTOL[dtype] * scale
+
+
+@pytest.mark.gpu
+def test_flash_at_head_dim_16_raises_on_the_card(cuda):
+    """reduced()'s head dim 16 is not a flash kernel's: on the card the
+    kernel's ValueError stands, and nothing reroutes to the plain
+    version."""
+    q = torch.randn(1, 32, 4, 16, device=cuda)
+    kv = torch.randn(1, 32, 2, 16, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q, kv, kv, causal=True)
