@@ -128,6 +128,30 @@ JSON line; any failure exits non-zero:
           row; the SSD's final state at the full-width row shape against
           the plain recurrence; the path's kernels by CUDA events at the
           path's shapes, which are the ``kernels`` line's model-path rows
+  train   the language models' training path: flash at head dim 16 (the
+          reduced() configs': ``flash_attention_d16``, the CUDA-core
+          kernel both flash sources build for it) against its plain
+          version, bf16 and fp32, causal and not, GQA, Sq != Skv; the
+          flash and SSD backward formulas (autograd through the ops,
+          whose forward is the kernel) against autograd through the plain
+          versions and against the same formula on the CPU, then timed
+          at the full-width training shapes beside SDPA's backward;
+          ``train_loop`` at full width (qwen3-1.7b, mamba2-1.3b; batch 2
+          — train_4k's global batch of 256 cut to one card —, seq 4,096,
+          3 steps, remat "full", bf16): per step ms, tokens/s, peak
+          memory, loss and grad norm, all finite, and the kernels'
+          launches per step, exactly 2 per path layer (the forward and
+          its recompute: 56 flash_attention_wgmma, 96 ssd_scan_wgmma) and
+          nothing else; the kernels' device ms inside a step
+          (``chip_smoke.py --trace-train ARCH``, depth 2, a child
+          process); depth cut to 2 at full width: one fp32 train step on
+          the card against the CPU's (loss and grad norm within rtol
+          1e-4, parameters within 2·lr + 1e-6); the reduced defaults on
+          the card (head dim 16): train_loop smollm-135m for 20 steps
+          (the loss drops) and 3 fp32 steps, serve_demo,
+          measure_step_time of schedule_run's archs, ``schedule_run
+          --jobs 3 --steps 2`` (its plan line equal to the CPU's); the
+          path's kernels by CUDA events for the ``kernels`` line
   paper4  the paper's §4 experiment (examples/vos_scheduler_demo.py) on the
           port's core: six heuristics, 120 jobs each, a 70% power cap; the
           VoS must equal the JAX package's, recorded below
@@ -454,14 +478,16 @@ def zeroed_counters() -> dict:
     """The launch counters of the calibrator's kernels by name, each set
     to 0 (``window_agg``'s counts by load width too)."""
     from repro_torch.kernels.flash_attention.kernel import (
-        flash_attention_3xtf32, flash_attention_bshd, flash_attention_wgmma)
+        flash_attention_3xtf32, flash_attention_bshd, flash_attention_d16,
+        flash_attention_wgmma)
     from repro_torch.kernels.ssd_scan.kernel import (ssd_scan_blh, ssd_scan_fma,
                                                      ssd_scan_wgmma)
     from repro_torch.kernels.window_agg.kernel import segment_reduce
     counters = {"window_agg": segment_reduce, "flash_attention":
                 flash_attention_bshd, "flash_attention_wgmma":
                 flash_attention_wgmma, "flash_attention_3xtf32":
-                flash_attention_3xtf32, "ssd_scan": ssd_scan_blh,
+                flash_attention_3xtf32, "flash_attention_d16":
+                flash_attention_d16, "ssd_scan": ssd_scan_blh,
                 "ssd_scan_wgmma": ssd_scan_wgmma, "ssd_scan_fma": ssd_scan_fma}
     for c in counters.values():
         c.launches = 0
@@ -493,7 +519,9 @@ def calibration_path() -> dict:
     require(segment_reduce.vector_launches == 0,
             f"the dry-run's [768, 1] took 16-byte loads: {launches}")
 
-    require(all(n > 0 for n in launches.values()),
+    # the calibrator's flash dry-run has head dim 64: d 16 is not its path
+    require(all(n > 0 for k, n in launches.items()
+                if k != "flash_attention_d16"),
             f"a kernel of the calibration path never launched: {launches}")
     require(cal.device.type == "cuda", f"calibrator on {cal.device}")
     require(len(cal.log) == 3
@@ -1559,6 +1587,519 @@ def lm_path(dev, gen, smi0) -> list:
     return rows
 
 
+# the LM training path: full width (SHAPES["train_4k"]'s 4,096 positions;
+# its global batch of 256 is a pod's, cut to 2 for one card), three steps
+# each under TrainHParams' defaults (remat "full", bf16 compute); the
+# card against the CPU at depth TRAIN_PLAIN_LAYERS; the defaults of the
+# reduced entry points (head dim 16)
+TRAIN_ARCHS = ("qwen3-1.7b", "mamba2-1.3b")
+TRAIN_FULL = dict(batch=2, seq=4096, steps=3)
+TRAIN_PLAIN = (1, 256)
+TRAIN_PLAIN_LAYERS = 2
+TRAIN_DEFAULT_STEPS = 20
+# flash at head dim 16: (B, Sq, Skv, H, KV, d, causal); the reduced
+# train_loop's shape first (smollm-135m: batch 8, seq 128, H 4, KV 2)
+FLASH_D16_CASES = ((8, 128, 128, 4, 2, 16, True),
+                   (2, 200, 200, 4, 1, 16, True),      # ragged, MQA
+                   (1, 96, 160, 4, 2, 16, False),      # Sq < Skv
+                   (1, 160, 96, 2, 2, 16, True))       # Sq > Skv
+# the backward checks' shapes: (B, Sq, Skv, H, KV, d, causal) and (B, L,
+# H, P, G, N, chunk); the backward's tolerance as a fraction of each
+# gradient's max|g| (bf16: the two sides round their products apart)
+# (the last flash case spans three query blocks of the backward's
+# BLOCK_Q, each adding into dK and dV under a moving causal key end)
+BWD_FLASH_CASES = ((2, 192, 192, 4, 2, 16, True), (1, 128, 256, 4, 2, 16,
+                                                    False),
+                   (1, 256, 256, 4, 2, 128, True), (1, 96, 224, 8, 2, 128,
+                                                    True),
+                   (1, 1100, 1300, 4, 2, 128, True))
+BWD_SSD_CASES = ((2, 256, 4, 64, 1, 128, 64), (1, 200, 4, 16, 2, 32, 64))
+BWD_RTOL = {"float32": 1e-4, "bfloat16": 5e-2}
+BWD_SSD_RTOL = {"float32": 1e-4, "bfloat16": 1e-1}
+
+
+def _grads_close(got, want, rtol, what) -> float:
+    """max over the gradients of |got - want| / max|want|; fails past
+    ``rtol``."""
+    import torch
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        a, b = a.float().cpu(), b.float().cpu()
+        name = f"gradient {i}"
+        require(bool(torch.isfinite(a).all()), f"{what} {name}: not finite")
+        rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        require(rel <= rtol, f"{what} {name}: |err| / max|g| = {rel} > "
+                f"{rtol}")
+        worst = max(worst, rel)
+    return worst
+
+
+def trace_train(arch) -> None:
+    """(Run as ``chip_smoke.py --trace-train ARCH``, by ``train_path``.)
+    One bf16 train step of ``arch`` at the full-width training shape, cut
+    to TRAIN_PLAIN_LAYERS, after a warm-up step, under torch.profiler;
+    prints the path's kernels as {name: {launches, ms_per_launch}} on its
+    last line. A process of its own, as ``trace_prefill``."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data import ShardedLoader
+    from repro_torch.models import model as M
+    from repro_torch.train import (TrainHParams, init_train_state,
+                                   make_train_step)
+
+    dev = torch.device("cuda", 0)
+    cfg = dataclasses.replace(get_arch(arch), n_layers=TRAIN_PLAIN_LAYERS)
+    names = (("flash_forward_sm90",) if cfg.ssm is None else
+             ("chunk_state_wgmma", "state_pass", "chunk_output_wgmma"))
+    state = init_train_state(M.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED)))
+    step = make_train_step(cfg, TrainHParams())
+    batch = ShardedLoader(cfg, TRAIN_FULL["seq"], TRAIN_FULL["batch"],
+                          seed=SEED, device=dev)(0)
+
+    def one():
+        nonlocal state
+        state, _ = step(state, batch)
+
+    def inside(seen):
+        return {k: v for k, v in seen.items() if k.split("<")[0] in names}
+
+    def accept(seen):      # remat "full": the forward and its recompute
+        got = inside(seen)
+        return len(got) == len(names) and all(
+            v["launches"] == 2 * TRAIN_PLAIN_LAYERS for v in got.values())
+    one()
+    torch.cuda.synchronize()
+    print(json.dumps(inside(per_call_device_ms(one, accept))), flush=True)
+
+
+def backward_checks(dev, gen) -> None:
+    """(b) of ``train_path``, the checks: the flash and SSD backward
+    formulas on the card (autograd through the ops, whose forward is the
+    kernel) against autograd through the plain versions and against the
+    same formula on the CPU, at BWD_FLASH_CASES and BWD_SSD_CASES, bf16
+    and fp32."""
+    import torch
+    from repro_torch.kernels.flash_attention import (attention_reference,
+                                                     flash_attention)
+    from repro_torch.kernels.flash_attention.backward import (
+        flash_attention_backward)
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_reference
+    from repro_torch.kernels.ssd_scan.backward import ssd_scan_backward
+
+    for case in BWD_FLASH_CASES:
+        for dt in ("float32", "bfloat16"):
+            q, k, v = flash_inputs(dev, gen, *case[:6], dt)
+            do = torch.randn(q.shape, device=dev, generator=gen).to(q.dtype)
+            ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            flash_attention(*ins, causal=case[6]).backward(do)
+            got = [t.grad for t in ins]
+            ref_in = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            attention_reference(*ref_in, causal=case[6]).backward(do)
+            e_plain = _grads_close(got, [t.grad for t in ref_in],
+                                   BWD_RTOL[dt], f"flash backward {case} {dt}")
+            cpu = flash_attention_backward(*(t.cpu() for t in (q, k, v, do)),
+                                           case[6])
+            e_cpu = _grads_close(got, cpu, BWD_RTOL[dt],
+                                 f"flash backward {case} {dt} vs CPU")
+            emit("train", case=f"flash backward {list(case)} {dt}",
+                 vs_plain_autograd=e_plain, vs_cpu_formula=e_cpu,
+                 tolerance=f"{BWD_RTOL[dt]} * max|g| per gradient")
+    for case in BWD_SSD_CASES:
+        B, L, H, P, G, N, chunk = case
+        for dt in ("float32", "bfloat16"):
+            args = ssd_inputs(dev, gen, B, L, H, P, G, N, dt)
+            dy = torch.randn(args[0].shape, device=dev,
+                             generator=gen).to(args[0].dtype)
+            ins = [t.clone().requires_grad_(True) for t in args]
+            ssd_scan(*ins, chunk=chunk).backward(dy)
+            got = [t.grad for t in ins]
+            ref_in = [t.clone().requires_grad_(True) for t in args]
+            ssd_scan_reference(*ref_in).backward(dy)
+            e_plain = _grads_close(got, [t.grad for t in ref_in],
+                                   BWD_SSD_RTOL[dt],
+                                   f"ssd backward {case} {dt}")
+            cpu = ssd_scan_backward(*(t.cpu() for t in args), chunk, dy.cpu())
+            e_cpu = _grads_close(got, cpu, BWD_SSD_RTOL[dt],
+                                 f"ssd backward {case} {dt} vs CPU")
+            emit("train", case=f"ssd backward {list(case)} {dt}",
+                 vs_plain_autograd=e_plain, vs_cpu_formula=e_cpu,
+                 tolerance=f"{BWD_SSD_RTOL[dt]} * max|g| per gradient")
+
+
+def card_vs_cpu_steps(dev) -> None:
+    """(d) of ``train_path``: for each of TRAIN_ARCHS at full width with
+    its depth cut to TRAIN_PLAIN_LAYERS, one fp32 train step on the card
+    against the same weights and batch on the CPU (the plain versions).
+    Loss and grad norm within rtol 1e-4. Each parameter's clipped
+    gradient, read from AdamW's first moment after the step ((1 - b1)·g,
+    from zero moments), within STEP_GRAD_RTOL·|g| + STEP_GRAD_ATOL·max|g|
+    of the CPU's (STEP_SSM_GRAD_ATOL·max|g| in place of the second term
+    for mamba2-1.3b, ``kernels/sweeps.py`` says why). The
+    updated parameters within 2·lr + 1e-6, a sanity
+    bound only: a first AdamW step moves each parameter by about ±lr,
+    whatever its gradient."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data import make_batch
+    from repro_torch.kernels.sweeps import (STEP_GRAD_ATOL, STEP_GRAD_RTOL,
+                                            STEP_SSM_GRAD_ATOL)
+    from repro_torch.models import model as M
+    from repro_torch.train import (TrainHParams, init_train_state,
+                                   make_train_step)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hp = TrainHParams(compute_dtype=torch.float32)
+    Bp, Sp = TRAIN_PLAIN
+    for arch in TRAIN_ARCHS:
+        cfg2 = dataclasses.replace(get_arch(arch),
+                                   n_layers=TRAIN_PLAIN_LAYERS)
+        model = M.init_params(cfg2, torch.Generator(device=dev).manual_seed(
+            SEED))
+        cpu_model = copy.deepcopy(model).cpu()
+        bd = {k: torch.as_tensor(v, device=dev)
+              for k, v in make_batch(cfg2, Sp, Bp, 0, SEED).items()}
+        step = make_train_step(cfg2, hp)
+        t0 = time.perf_counter()
+        card, mc = step(init_train_state(model), bd)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu, mp = step(init_train_state(cpu_model),
+                       {k: v.cpu() for k, v in bd.items()})
+        cpu_s = time.perf_counter() - t0
+        lr = float(mc["lr"])
+        errs = {k: abs(float(mc[k]) - float(mp[k])) / abs(float(mp[k]))
+                for k in ("loss", "grad_norm")}
+        require(all(e <= 1e-4 for e in errs.values()),
+                f"{arch} train step, card vs CPU: {errs}")
+        # the atol, as a fraction of max|g|, that each gradient needs
+        atol = STEP_SSM_GRAD_ATOL if cfg2.ssm is not None else STEP_GRAD_ATOL
+        grad_atol = {}
+        for name, mu in card.opt.mu.items():
+            a, b = mu.cpu(), cpu.opt.mu[name]
+            require(bool(torch.isfinite(a).all()),
+                    f"{arch} train step: gradient of {name} not finite")
+            grad_atol[name] = float(
+                ((a - b).abs() - STEP_GRAD_RTOL * b.abs()).max()
+                / max(float(b.abs().max()), 1e-30))
+        worst = max(grad_atol, key=grad_atol.get)
+        require(grad_atol[worst] <= atol,
+                f"{arch} train step, card vs CPU: gradient of {worst} off "
+                f"by {STEP_GRAD_RTOL}·|g| + {grad_atol[worst]}·max|g| > "
+                f"{atol}·max|g|")
+        p_err = max(float((a.detach().cpu() - b.detach()).abs().max())
+                    for a, b in zip(card.params.parameters(),
+                                    cpu.params.parameters()))
+        require(p_err <= 2 * lr + 1e-6, f"{arch} train step, card vs CPU: "
+                f"parameters {p_err} > 2·lr + 1e-6 = {2 * lr + 1e-6}")
+        emit("train", case="card_vs_cpu_step", arch=arch, dtype="float32",
+             layers=TRAIN_PLAIN_LAYERS, batch=Bp, seq=Sp,
+             rel_err=errs, grads=len(grad_atol),
+             grad_worst={"tensor": worst, "atol": grad_atol[worst]},
+             grad_tolerance=f"{STEP_GRAD_RTOL}·|g| + {atol}·max|g|",
+             params_max_abs_err=p_err, params_tolerance=2 * lr + 1e-6,
+             card_seconds=card_s, cpu_seconds=cpu_s)
+        del model, cpu_model, card, cpu
+        torch.cuda.empty_cache()
+
+
+def train_path(dev, gen, smi0) -> list:
+    """The LM training path on the card:
+      (a) flash at head dim 16 (``flash_attention_d16``, the CUDA-core
+          kernel both flash sources build for it) against its plain
+          version, bf16 and fp32, causal and not, GQA, Sq != Skv;
+      (b) the flash and SSD backward formulas on the card (autograd
+          through the ops, whose forward is the kernel) against autograd
+          through the plain versions, and against the same formula on the
+          CPU, bf16 and fp32, flash at d 16 and 128; then timed at the
+          full-width training shapes beside SDPA's backward (flash) by
+          CUDA events;
+      (c) ``train_loop`` at full width (qwen3-1.7b, mamba2-1.3b; batch 2,
+          seq 4,096, 3 steps, TrainHParams' defaults: remat "full", bf16):
+          per step ms (host clock after a device sync), tokens/s, peak
+          memory, loss and grad norm, all finite; the kernels' launches
+          per step, exactly 2 per path layer (forward and recompute) and
+          nothing else; the kernels' device ms inside a step (a traced
+          step at depth TRAIN_PLAIN_LAYERS in a child process);
+      (d) depth cut to TRAIN_PLAIN_LAYERS at full width: one fp32 train
+          step on the card against the same weights and batch on the CPU
+          (the plain versions): loss and grad norm within rtol 1e-4,
+          every parameter's gradient within STEP_GRAD_RTOL·|g| +
+          STEP_GRAD_ATOL·max|g| (STEP_SSM_GRAD_ATOL·max|g| with SSM
+          layers; ``card_vs_cpu_steps``);
+      (e) the reduced defaults on the card (head dim 16): train_loop
+          smollm-135m for TRAIN_DEFAULT_STEPS steps (the loss drops),
+          ``serve_demo``, ``measure_step_time`` for schedule_run's three
+          archs, ``schedule_run --jobs 3 --steps 2`` (its plan line equal
+          to the CPU's).
+    Returns the ``kernels`` rows of the path."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_arch
+    from repro_torch.core.emulator import measure_step_time
+    from repro_torch.kernels.flash_attention import (attention_reference,
+                                                     flash_attention)
+    from repro_torch.kernels.flash_attention.backward import (
+        flash_attention_backward)
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_d16
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_reference
+    from repro_torch.kernels.ssd_scan.backward import ssd_scan_backward
+    from repro_torch.kernels.sweeps import (FLASH_TOL,
+                                            FULL_FLASH_BF16_ROW_RTOL,
+                                            FULL_SSD_RTOL)
+    from repro_torch.launch import schedule_run
+    from repro_torch.launch.serve import serve_demo
+    from repro_torch.launch.train import train_loop
+    from repro_torch.train import TrainHParams
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = []
+
+    # (a) flash at head dim 16 against its plain version
+    d16_err = {}
+    for B, Sq, Skv, H, KV, d, causal in FLASH_D16_CASES:
+        for dt in ("bfloat16", "float32"):
+            q, k, v = flash_inputs(dev, gen, B, Sq, Skv, H, KV, d, dt)
+            before = flash_attention_d16.launches
+            out = flash_attention(q, k, v, causal=causal)
+            again = flash_attention(q, k, v, causal=causal)
+            ref = attention_reference(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            name = f"flash_d16[{B},{Sq},{Skv},{H},{KV},{d}] causal={causal} {dt}"
+            require(flash_attention_d16.launches - before == 2,
+                    f"{name}: flash_attention_d16 launches "
+                    f"{flash_attention_d16.launches - before}")
+            require(torch.equal(bits(out), bits(again)), f"{name}: rerun "
+                    "differs")
+            err = float((out.float() - ref.float()).abs().max())
+            require(bool(torch.isfinite(out.float()).all())
+                    and err <= FLASH_TOL[dt],
+                    f"{name}: max |kernel - plain| {err} > {FLASH_TOL[dt]}")
+            emit("train", case=name, max_abs_err=err,
+                 tolerance=FLASH_TOL[dt])
+            d16_err[dt] = max(d16_err.get(dt, 0.0), err)
+
+    # (b) the backward formulas on the card
+    backward_checks(dev, gen)
+
+    # the backward formulas timed at the full-width training shapes (bf16)
+    B, S = TRAIN_FULL["batch"], TRAIN_FULL["seq"]
+    qwen, mamba = get_arch("qwen3-1.7b"), get_arch("mamba2-1.3b")
+    q, k, v = flash_inputs(dev, gen, B, S, S, qwen.n_heads, qwen.n_kv_heads,
+                           qwen.head_dim, "bfloat16")
+    do = torch.randn(q.shape, device=dev, generator=gen).to(q.dtype)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                            enable_gqa=True)
+    do_t = do.transpose(1, 2)
+    flash_bwd = {"ms": cuda_ms(lambda: flash_attention_backward(
+                     q, k, v, do, True), 5, 1),
+                 "library_ms": cuda_ms(lambda: torch.autograd.grad(
+                     o_sdpa, (qt, kt, vt), do_t, retain_graph=True), 20, 3),
+                 "library": "scaled_dot_product_attention(is_causal=True, "
+                            "enable_gqa=True) backward",
+                 "forward_kernel_ms": cuda_ms(lambda: flash_attention(
+                     q, k, v, causal=True), 20, 3)}
+    emit("times", case="flash backward qwen3-1.7b train",
+         shape=[[B, S, qwen.n_heads, qwen.head_dim],
+                [B, S, qwen.n_kv_heads, qwen.head_dim]], dtype="bfloat16",
+         nvidia_smi=smi0, **flash_bwd)
+    del q, k, v, do, qt, kt, vt, o_sdpa, do_t
+    s = mamba.ssm
+    args = ssd_inputs(dev, gen, B, S, s.n_heads(mamba.d_model), s.head_dim,
+                      s.n_groups, s.d_state, "bfloat16")
+    dy = torch.randn(args[0].shape, device=dev, generator=gen).to(
+        args[0].dtype)
+    ssd_bwd = {"ms": cuda_ms(lambda: ssd_scan_backward(
+                   *args, s.chunk_size, dy), 3, 1),
+               "library_ms": None,
+               "forward_kernel_ms": cuda_ms(lambda: ssd_scan(
+                   *args, chunk=s.chunk_size), 20, 3)}
+    emit("times", case="ssd backward mamba2-1.3b train",
+         shape=[B, S, s.n_heads(mamba.d_model), s.head_dim],
+         d_state=s.d_state, chunk=s.chunk_size, dtype="bfloat16",
+         nvidia_smi=smi0, **ssd_bwd)
+    del args, dy
+    torch.cuda.empty_cache()
+
+    # (c) train_loop at full width
+    per_step = {}
+    for arch in TRAIN_ARCHS:
+        cfg = get_arch(arch)
+        attn = cfg.ssm is None
+        n_path = sum(k.startswith("attn" if attn else "ssm")
+                     for k in cfg.layer_kinds())
+        kernel = "flash_attention_wgmma" if attn else "ssd_scan_wgmma"
+        counters = zeroed_counters()
+        steps = []
+        torch.cuda.reset_peak_memory_stats(dev)
+
+        def on_step(step, rec, counters=counters, steps=steps, arch=arch):
+            launches = {k: c.launches for k, c in counters.items()}
+            for c in counters.values():
+                c.launches = 0
+            counters["window_agg"].vector_launches = 0
+            counters["window_agg"].scalar_launches = 0
+            steps.append({"step": step, "ms": rec["seconds"] * 1e3,
+                          "tokens_per_s": TRAIN_FULL["batch"]
+                          * TRAIN_FULL["seq"] / rec["seconds"],
+                          "max_memory_allocated":
+                          torch.cuda.max_memory_allocated(dev),
+                          "loss": rec["loss"], "grad_norm": rec["grad_norm"],
+                          "lr": rec["lr"], "launches": launches})
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            state, losses = train_loop(arch, full=True, seed=SEED,
+                                       device=dev, log_every=1,
+                                       hp=TrainHParams(), on_step=on_step,
+                                       **TRAIN_FULL)
+        want = {k: 0 for k in counters}
+        want[kernel] = want["flash_attention" if attn else "ssd_scan"] \
+            = 2 * n_path
+        for rec in steps:
+            emit("train", case="full_width_step", arch=arch, **rec,
+                 nvidia_smi=smi0)
+            require(math.isfinite(rec["loss"])
+                    and math.isfinite(rec["grad_norm"]),
+                    f"{arch} step {rec['step']}: loss {rec['loss']}, grad "
+                    f"norm {rec['grad_norm']}")
+            require(rec["launches"] == want, f"{arch} step {rec['step']}: "
+                    f"launches {rec['launches']}, want {want}")
+        per_step[arch] = (kernel, 2 * n_path, steps)
+        emit("train", case="full_width", arch=arch, **TRAIN_FULL,
+             remat="full", compute_dtype="bfloat16",
+             launches_per_step={kernel: 2 * n_path},
+             peak_memory=torch.cuda.max_memory_allocated(dev),
+             printed=printed.getvalue().strip(), nvidia_smi=smi0)
+        del state
+        torch.cuda.empty_cache()
+
+        child = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--trace-train",
+             arch], capture_output=True, text=True, timeout=TRACE_TIMEOUT_S)
+        require(child.returncode == 0, f"{arch} train-step trace: exit "
+                f"{child.returncode}\n{child.stderr[-3000:]}")
+        inside = json.loads(child.stdout.splitlines()[-1])
+        emit("train", case="in_step_device_ms", arch=arch, dtype="bfloat16",
+             layers=TRAIN_PLAIN_LAYERS, batch=TRAIN_FULL["batch"],
+             seq=TRAIN_FULL["seq"], kernels=inside,
+             device_ms_per_step_per_layer=sum(
+                 v["ms_per_launch"] * v["launches"] for v in inside.values())
+             / TRAIN_PLAIN_LAYERS,
+             profiler_retries=len(child.stdout.splitlines()) - 1,
+             nvidia_smi=smi0)
+
+    # (d) the card against the CPU at depth TRAIN_PLAIN_LAYERS, fp32
+    card_vs_cpu_steps(dev)
+
+    # (e) the reduced defaults on the card: head dim 16
+    counters = zeroed_counters()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        _, losses = train_loop("smollm-135m", steps=TRAIN_DEFAULT_STEPS,
+                               log_every=10**9)
+    d16_launches = counters["flash_attention_d16"].launches
+    n_layers = get_arch("smollm-135m").reduced().n_layers
+    require(d16_launches == TRAIN_DEFAULT_STEPS * n_layers,
+            f"reduced train_loop: flash_attention_d16 launches "
+            f"{d16_launches}")
+    require(all(math.isfinite(x) for x in losses)
+            and np.mean(losses[-5:]) < np.mean(losses[:5]),
+            f"reduced train_loop: losses {losses}")
+    # the same loop in fp32 compute, a few steps: the fp32 d 16 kernel
+    counters = zeroed_counters()
+    with contextlib.redirect_stdout(printed):
+        _, losses32 = train_loop(
+            "smollm-135m", steps=3, log_every=10**9,
+            hp=TrainHParams(peak_lr=1e-3, warmup_steps=20, total_steps=3,
+                            remat="none", compute_dtype=torch.float32))
+    d16_launches32 = counters["flash_attention_d16"].launches
+    require(d16_launches32 == 3 * n_layers
+            and all(math.isfinite(x) for x in losses32),
+            f"reduced fp32 train_loop: launches {d16_launches32}, losses "
+            f"{losses32}")
+    with contextlib.redirect_stdout(printed):
+        rep = serve_demo("smollm-135m", seed=SEED)
+    step_s = {a: measure_step_time(a) for a in schedule_run.EDGE_ARCHS}
+    require(all(0 < t < 60 for t in step_s.values()),
+            f"measure_step_time: {step_s}")
+    sched = io.StringIO()
+    with contextlib.redirect_stdout(sched):
+        schedule_run.main(["--jobs", "3", "--steps", "2"])
+    lines = sched.getvalue().splitlines()
+    _, cpu_line = schedule_run.plan(3, "VPTR")
+    require(lines[0] == cpu_line, f"schedule_run plan line {lines[0]!r} != "
+            f"{cpu_line!r}")
+    require(sum(ln.startswith("  job ") and "ran 2 real steps" in ln
+                for ln in lines) == 3, f"schedule_run: {lines}")
+    emit("train", case="reduced_defaults", train_loop_losses=losses,
+         flash_attention_d16_launches=d16_launches,
+         fp32_train_loop_losses=losses32,
+         fp32_flash_attention_d16_launches=d16_launches32,
+         serve_demo_ms={"prefill": rep.prefill_s * 1e3,
+                        "decode_per_token": rep.decode_ms_per_token},
+         measure_step_time_s=step_s, schedule_run=lines, nvidia_smi=smi0)
+
+    # the kernels line: d 16 at the reduced train_loop's shape; the
+    # training path's bf16 kernels at the full-width training shapes
+    for dt in ("bfloat16", "float32"):
+        shp = FLASH_D16_CASES[0]
+        t = time_flash(dev, gen, shp, dt, profile=False)
+        emit("times", case=f"flash_attention_d16 smollm-135m reduced train "
+             f"{dt}", shape=list(shp), dtype=dt, nvidia_smi=smi0, **t)
+        rows.append((f"flash_attention.flash_attention_d16 {dt} smollm-135m "
+                     "reduced train_loop", "flash_attention_sm90"
+                     if dt == "bfloat16" else "flash_attention_sm90_f32",
+                     "src/repro/kernels/flash_attention/kernel.py:87",
+                     d16_launches if dt == "bfloat16" else d16_launches32,
+                     d16_err[dt], t))
+    for arch in TRAIN_ARCHS:
+        kernel, per, steps = per_step[arch]
+        cfg = get_arch(arch)
+        if cfg.ssm is None:
+            shp = (B, S, S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, True)
+            q, k, v = flash_inputs(dev, gen, *shp[:6], "bfloat16")
+            out = flash_attention(q, k, v, causal=True)
+            ref = attention_reference(q, k, v, causal=True)
+            diff = (out.float() - ref.float()).abs()
+            err = float(diff.max())
+            require(bool((diff.amax(-1) <= FULL_FLASH_BF16_ROW_RTOL
+                          * ref.float().abs().amax(-1)).all()),
+                    f"{kernel} at the training shape: max |err| {err}")
+            del q, k, v, out, ref, diff
+            t = time_flash(dev, gen, shp, "bfloat16", profile=False)
+            row = (f"flash_attention.{kernel} {arch} train step",
+                   "flash_attention_sm90",
+                   "src/repro/kernels/flash_attention/kernel.py:87")
+        else:
+            s = cfg.ssm
+            shp = (B, S, s.n_heads(cfg.d_model), s.head_dim, s.n_groups,
+                   s.d_state, s.chunk_size)
+            args = ssd_inputs(dev, gen, *shp[:6], "bfloat16")
+            out, ref = ssd_scan(*args, chunk=s.chunk_size), \
+                ssd_scan_reference(*args)
+            err = float((out.float() - ref.float()).abs().max())
+            require(err <= FULL_SSD_RTOL["bfloat16"]
+                    * float(ref.float().abs().max()),
+                    f"{kernel} at the training shape: max |err| {err}")
+            del args, out, ref
+            t = time_ssd(dev, gen, shp, "bfloat16", profile=False,
+                         plain_reps=1)
+            row = (f"ssd_scan.{kernel} {arch} train step", "ssd_scan",
+                   "src/repro/kernels/ssd_scan/kernel.py:71")
+        emit("times", case=f"{kernel} {arch} train", shape=list(shp),
+             dtype="bfloat16", launches=per * len(steps), nvidia_smi=smi0,
+             **t)
+        rows.append((*row, per * len(steps), err, t))
+    return rows
+
+
 def paper4() -> None:
     """examples/vos_scheduler_demo.py on the port's core."""
     from repro_torch import hardware as hw
@@ -2063,6 +2604,7 @@ def main() -> None:
     region_path(dev, smi0)
     serve_path()
     lm_rows = lm_path(dev, gen, smi0)
+    train_rows = train_path(dev, gen, smi0)
     paper4()
 
     # ---- times ---------------------------------------------------------------------
@@ -2149,7 +2691,7 @@ def main() -> None:
               timed_full[("ssd", "bfloat16")]),
              ("ssd_scan.ssd_scan_fma", "ssd_scan", ssd,
               cal_launches["ssd_scan_fma"], full_err[("ssd", "float32")],
-              timed_full[("ssd", "float32")])] + lm_rows
+              timed_full[("ssd", "float32")])] + lm_rows + train_rows
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{src}.cu",
@@ -2168,5 +2710,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--trace-prefill"]:
         trace_prefill(sys.argv[2])
+    elif sys.argv[1:2] == ["--trace-train"]:
+        trace_train(sys.argv[2])
     else:
         main()

@@ -7,7 +7,8 @@ numpy and converted here; nothing in this module imports JAX.
 
 The language models' parameters are drawn from ``jax.random`` too;
 ``lm_params_from_jax`` carries a JAX parameter tree into the port's
-per-layer modules.
+per-layer modules, and ``train_state_from_jax`` a JAX train state (the
+parameters, AdamW's moments and counters) into the port's.
 
 The JITA-4DS core, the calibrator and the flash attention and SSD
 kernels carry no parameters: their inputs are numpy arrays and traces
@@ -24,7 +25,9 @@ import torch
 from repro_torch.configs import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.model import LM
+from repro_torch.optim import AdamWState
 from repro_torch.pipeline.operators import CNNClassifier
+from repro_torch.train.state import TrainState
 
 
 def cnn_from_jax(params: Mapping[str, np.ndarray], *,
@@ -73,6 +76,21 @@ def _unstack(groups, layers: str, n_layers: int, out) -> None:
                 out[f"{layers}.{r * len(groups) + j}.{path}"] = a[r]
 
 
+def lm_arrays_from_jax(cfg: ArchConfig, params: Mapping
+                       ) -> Dict[str, np.ndarray]:
+    """A JAX parameter tree, or one shaped like it (its gradients, AdamW's
+    moments), as {the port's parameter name: array}."""
+    sd: Dict[str, np.ndarray] = {}
+    top = {k: v for k, v in params.items()
+           if k not in ("blocks", "enc_blocks")}
+    _flat(top, "", sd)
+    _unstack(params["blocks"], "blocks", cfg.n_layers, sd)
+    if cfg.enc_dec is not None:
+        _unstack(params["enc_blocks"], "enc_blocks",
+                 cfg.enc_dec.n_enc_layers, sd)
+    return sd
+
+
 def lm_params_from_jax(cfg: ArchConfig, params: Mapping, *,
                        device: DeviceLike = None) -> LM:
     """An ``LM`` of ``cfg`` with the JAX package's parameters (a tree of
@@ -84,15 +102,33 @@ def lm_params_from_jax(cfg: ArchConfig, params: Mapping, *,
     with the reference's einsums. Every parameter of the port must be
     given, and nothing else."""
     dev = resolve_device(device)
-    sd: Dict[str, np.ndarray] = {}
-    top = {k: v for k, v in params.items()
-           if k not in ("blocks", "enc_blocks")}
-    _flat(top, "", sd)
-    _unstack(params["blocks"], "blocks", cfg.n_layers, sd)
-    if cfg.enc_dec is not None:
-        _unstack(params["enc_blocks"], "enc_blocks",
-                 cfg.enc_dec.n_enc_layers, sd)
+    sd = lm_arrays_from_jax(cfg, params)
     model = LM(cfg, torch.Generator(device=dev).manual_seed(0))
     model.load_state_dict({k: torch.from_numpy(np.array(v, np.float32))
                            for k, v in sd.items()}, strict=True)
     return model
+
+
+def train_state_from_jax(cfg: ArchConfig, state, *,
+                         device: DeviceLike = None) -> TrainState:
+    """The port's ``TrainState`` from the JAX package's (``params``,
+    ``opt.mu``, ``opt.nu``, ``opt.count``, ``step``; arrays as
+    ``np.asarray`` reads them): the parameters through
+    ``lm_params_from_jax``, the moments through the same path map onto the
+    model's parameter names, in their own type."""
+    dev = resolve_device(device)
+    model = lm_params_from_jax(cfg, state.params, device=dev)
+    names = dict(model.named_parameters())
+
+    def moments(tree):
+        flat = lm_arrays_from_jax(cfg, tree)
+        if set(flat) != set(names):
+            raise ValueError(f"moments and parameters differ: "
+                             f"{sorted(set(flat) ^ set(names))}")
+        return {k: torch.from_numpy(np.array(a, np.float32)).to(
+                    dev, torch.bfloat16 if a.dtype.name == "bfloat16"
+                    else torch.float32)
+                for k, a in ((k, np.asarray(flat[k])) for k in names)}
+    opt = AdamWState(mu=moments(state.opt.mu), nu=moments(state.opt.nu),
+                     count=int(np.asarray(state.opt.count)))
+    return TrainState(params=model, opt=opt, step=int(np.asarray(state.step)))

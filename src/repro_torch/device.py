@@ -6,6 +6,7 @@ the port never falls back to the CPU on its own.
 """
 from __future__ import annotations
 
+import time
 from typing import Union
 
 import torch
@@ -30,3 +31,11 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def sync_clock(device: torch.device) -> float:
+    """The host clock after the device has finished its queued work (a
+    CUDA synchronize; nothing to wait for on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()

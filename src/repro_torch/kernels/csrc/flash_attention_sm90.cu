@@ -49,6 +49,9 @@
 //    causal tail does not leave SMs idle.
 //  * No atomics and a fixed order of every sum: reruns are bit-identical.
 //
+// At d = 16 (every reduced() configuration) the entry point launches the
+// CUDA-core kernel of flash_d16.cuh instead.
+//
 // Plain C interface, loaded with ctypes. cuTensorMapEncodeTiled lives in
 // libcuda; the library looks it up at run time through the runtime's
 // entry-point query (cudaGetDriverEntryPoint, tma.cuh) and links no
@@ -60,6 +63,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_d16.cuh"
 #include "sm90.cuh"
 #include "tma.cuh"
 
@@ -363,7 +367,8 @@ extern "C" {
 int flash_attention_sm90_query_tile() { return kBM; }
 
 // q, o: [B, Sq, H, d]; k, v: [B, Skv, KV, d]; all contiguous bf16, 16-byte
-// aligned; d in {32, 64, 128}; H a multiple of KV; 1 <= Sq, Skv < 2^31;
+// aligned; d in {16, 32, 64, 128} (d = 16 on the CUDA cores,
+// flash_d16.cuh); H a multiple of KV; 1 <= Sq, Skv < 2^31;
 // ceil(Sq / 128) <= 65535. scale multiplies q . k.
 int flash_attention_sm90_forward(const void* q, const void* k, const void* v,
                                  void* o, int64_t B, int64_t H, int64_t KV,
@@ -371,6 +376,9 @@ int flash_attention_sm90_forward(const void* q, const void* k, const void* v,
                                  int causal, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
+    case 16:
+      return d16::launch_d16<__nv_bfloat16>(q, k, v, o, B, H, KV, Sq, Skv,
+                                            causal, scale, s);
     case 32:
       return launch<32>(q, k, v, o, B, H, KV, Sq, Skv, causal, scale, s);
     case 64:

@@ -65,6 +65,9 @@
 //    tiles launch heaviest first (reversed in blockIdx.y).
 //  * No atomics and a fixed order of every sum: reruns are bit-identical.
 //
+// At d = 16 (every reduced() configuration) the entry point launches the
+// CUDA-core kernel of flash_d16.cuh instead, without the pre-pass.
+//
 // Plain C interface, loaded with ctypes. The launches go to the caller's
 // stream; nothing here allocates or synchronises: the caller passes the
 // pre-pass's buffers. The entry point returns 0 on success, a cudaError_t,
@@ -73,6 +76,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_d16.cuh"
 #include "sm90.cuh"
 #include "tma.cuh"
 
@@ -492,7 +496,9 @@ int flash_attention_sm90_f32_query_tile() { return kBM; }
 int flash_attention_sm90_f32_key_tile() { return kBN; }
 
 // q, o: [B, Sq, H, d]; k, v: [B, Skv, KV, d]; all contiguous float32,
-// 16-byte aligned; d in {32, 64, 128}; H a multiple of KV; 1 <= Sq, Skv <
+// 16-byte aligned; d in {16, 32, 64, 128} (d = 16 on the CUDA cores,
+// flash_d16.cuh, which needs no scratch: the four scratch pointers may
+// then be null); H a multiple of KV; 1 <= Sq, Skv <
 // 2^31; ceil(Sq / 64) <= 65535, B * KV <= 65535. Scratch from the caller:
 // k_hi, k_lo like k; vt_hi, vt_lo [B, KV, d, Skv_pad] with Skv_pad = Skv
 // rounded up to the key tile. scale multiplies q . k.
@@ -512,6 +518,9 @@ int flash_attention_sm90_f32_forward(const void* q, const void* k,
   float* vh = static_cast<float*>(vt_hi);
   float* vl = static_cast<float*>(vt_lo);
   switch (d) {
+    case 16:
+      return d16::launch_d16<float>(q, k, v, o, B, H, KV, Sq, Skv, causal,
+                                    scale, s);
     case 32:
       return launch<32>(qf, kf, vf, of, kh, kl, vh, vl, B, H, KV, Sq, Skv,
                         causal, scale, s);

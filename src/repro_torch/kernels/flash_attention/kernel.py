@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.kernels import build
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GRID_Y = 65535
 
@@ -143,16 +143,45 @@ def flash_attention_3xtf32(q: torch.Tensor, k: torch.Tensor,
     return out
 
 
+def flash_attention_d16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """The CUDA-core kernel at head dim 16 (``csrc/flash_d16.cuh``) on
+    float32 or bf16 q, k, v as ``flash_attention_bshd`` takes them, from
+    the library of their type; it needs no scratch. Counted in
+    ``flash_attention_d16.launches``."""
+    if q.dim() != 4 or q.shape[3] != 16:
+        raise ValueError(f"flash_attention_d16 takes head dim 16, got q "
+                         f"{tuple(q.shape)}")
+    if q.dtype == torch.bfloat16:
+        _check(q, k, v, torch.bfloat16)
+        name, n_ptrs, tiles = "flash_attention_sm90", 4, ("query",)
+    else:
+        _check(q, k, v, torch.float32)
+        name, n_ptrs, tiles = "flash_attention_sm90_f32", 8, ("query", "key")
+    _check_grid(q, -(-q.shape[1] // 128))
+    lib = _library(name, n_ptrs, tiles)
+    out = torch.empty_like(q)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    _launch(lib, name, "flash_attention_d16",
+            ptrs + (None,) * (n_ptrs - 4), q, k, causal)
+    flash_attention_d16.launches += 1
+    return out
+
+
 def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True) -> torch.Tensor:
     """q: [B, Sq, H, d]; k/v: [B, Skv, KV, d], contiguous CUDA tensors of
-    one type (float32 or bfloat16), d ∈ {32, 64, 128} → [B, Sq, H, d] of
-    q's type: bf16 through ``flash_attention_wgmma``, anything else through
+    one type (float32 or bfloat16), d ∈ {16, 32, 64, 128} → [B, Sq, H, d]
+    of q's type: d 16 through ``flash_attention_d16``, else bf16 through
+    ``flash_attention_wgmma`` and anything else through
     ``flash_attention_3xtf32``, which raises unless it is float32. Counted in
     ``flash_attention_bshd.launches`` as well as in the kernel's own
     counter."""
-    kernel = (flash_attention_wgmma if q.dtype == torch.bfloat16
-              else flash_attention_3xtf32)
+    if q.dim() == 4 and q.shape[3] == 16:
+        kernel = flash_attention_d16
+    else:
+        kernel = (flash_attention_wgmma if q.dtype == torch.bfloat16
+                  else flash_attention_3xtf32)
     out = kernel(q, k, v, causal)
     flash_attention_bshd.launches += 1
     return out
@@ -161,3 +190,4 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_bshd.launches = 0
 flash_attention_wgmma.launches = 0
 flash_attention_3xtf32.launches = 0
+flash_attention_d16.launches = 0

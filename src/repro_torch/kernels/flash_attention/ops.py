@@ -3,12 +3,14 @@
 (``kernel.flash_attention_bshd``), on a CPU tensor the plain version
 (``ref.attention_reference``). ``torch.utils.flop_counter.FlopCounterMode``
 counts the op by ``flash_attention_flops``, not by what either
-implementation runs inside."""
+implementation runs inside. Its gradient is ``backward.py``'s formula in
+torch ops, the same on both devices."""
 from __future__ import annotations
 
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch.kernels.flash_attention import backward
 from repro_torch.kernels.flash_attention.kernel import flash_attention_bshd
 from repro_torch.kernels.flash_attention.ref import attention_reference
 
@@ -38,6 +40,9 @@ def flash_attention_flops(q_shape, k_shape, causal: bool) -> int:
     else:
         pairs = Sq * Skv
     return 4 * d * B * H * pairs
+
+
+backward.register()
 
 
 @register_flop_formula(torch.ops.repro_torch.flash_attention)

@@ -1,0 +1,126 @@
+"""The gradient of ``repro_torch::ssd_scan`` (and of y through
+``repro_torch::ssd_scan_state``), and its registration with autograd.
+
+The JAX package has no backward kernel: its language models train by
+XLA's autodiff of the plain ``ssd_chunked`` (``models/ssm.py``). The
+port's forward is the hand-written SSD kernel on the card (the plain
+recurrence on the CPU); its backward takes the vector-Jacobian product
+of ``ssd_chunked`` below, a torch counterpart of the JAX package's
+function in its order of operations and types, recomputed under
+``torch.enable_grad()`` inside the backward: one code path on both
+devices, never the plain recurrence of ``ref.py``. The gradient covers
+x, dt, A, B_ and C.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+
+def _segsum(a: torch.Tensor) -> torch.Tensor:
+    """segsum(a)[..., i, j] = sum_{j < k <= i} a_k (−inf above the
+    diagonal)."""
+    Q = a.shape[-1]
+    cs = torch.cumsum(a, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]
+    mask = torch.ones(Q, Q, dtype=torch.bool, device=a.device).tril()
+    return diff.masked_fill(~mask, float("-inf"))
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                B_: torch.Tensor, C: torch.Tensor, chunk: int,
+                h0: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked SSD scan of the JAX package's ``ssd_chunked``. x: [B, L,
+    H, P]; dt: [B, L, H] (post-softplus); A: [H] (negative); B_, C: [B, L,
+    G, N] → (y [B, L, H, P] of x's type, h_final [B, H, P, N] of x's
+    type). The products take x's type, the decays and C·Bᵀ float32, and
+    the state is carried between chunks in x's type, as in the
+    reference."""
+    Bb, L, H, P = x.shape
+    G, N = B_.shape[2], B_.shape[3]
+    rep = H // G
+    Q = min(chunk, L)
+    if L % Q:
+        Q = L
+    Nc = L // Q
+    f32, xdt = torch.float32, x.dtype
+
+    xc = x.reshape(Bb, Nc, Q, H, P)
+    dtc = dt.reshape(Bb, Nc, Q, H).float()
+    Bc = B_.reshape(Bb, Nc, Q, G, N)
+    Cc = C.reshape(Bb, Nc, Q, G, N)
+
+    a = dtc * A                                          # [B, Nc, Q, H]
+    a_hq = a.movedim(-1, -2)                             # [B, Nc, H, Q]
+    seg = _segsum(a_hq)                                  # [B, Nc, H, Q, Q]
+    cum = torch.cumsum(a_hq, dim=-1)                     # [B, Nc, H, Q]
+
+    # the diagonal (within-chunk) term
+    CB = torch.einsum("bcqgn,bckgn->bcgqk", Cc.to(f32), Bc.to(f32))
+    CB = CB.repeat_interleave(rep, dim=2)                # [B, Nc, H, Q, Q]
+    M = CB * torch.exp(seg) * dtc.movedim(-1, -2)[..., None, :]
+    y_diag = torch.einsum("bchqk,bckhp->bcqhp", M.to(xdt), xc)
+
+    # the chunks' state summaries
+    decay_out = torch.exp(cum[..., -1:] - cum)           # [B, Nc, H, Q]
+    wB = (Bc.to(f32).repeat_interleave(rep, dim=3)
+          * (dtc * decay_out.movedim(-1, -2))[..., None])
+    S = torch.einsum("bcqhn,bcqhp->bchpn", wB.to(xdt), xc)  # [B,Nc,H,P,N]
+
+    # the recurrence across chunks
+    chunk_decay = torch.exp(cum[..., -1])                # [B, Nc, H]
+    h = (torch.zeros((Bb, H, P, N), dtype=xdt, device=x.device)
+         if h0 is None else h0)
+    entries = []
+    for c in range(Nc):
+        entries.append(h)
+        h = h * chunk_decay[:, c, :, None, None].to(xdt) + S[:, c]
+    h_enter = torch.stack(entries, dim=1)                # [B, Nc, H, P, N]
+
+    # the off-diagonal (carry-in) term
+    Cin = (Cc.to(f32).repeat_interleave(rep, dim=3)
+           * torch.exp(cum.movedim(-1, -2))[..., None])
+    y_off = torch.einsum("bcqhn,bchpn->bcqhp", Cin.to(xdt), h_enter)
+    return (y_diag + y_off).reshape(Bb, L, H, P), h
+
+
+def ssd_scan_backward(x, dt, A, B_, C, chunk: int, dy: torch.Tensor):
+    """The VJP of ``ssd_chunked``'s y at (x, dt, A, B_, C) for the
+    cotangent dy → (dx, ddt, dA, dB_, dC) in their inputs' types."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (x, dt, A, B_, C)]
+        y, _ = ssd_chunked(*ins, chunk)
+        grads = torch.autograd.grad(y, ins, dy.to(y.dtype))
+    return tuple(g.to(t.dtype) for g, t in zip(grads, (x, dt, A, B_, C)))
+
+
+def _setup_context(ctx, inputs, output):
+    x, dt, A, B_, C, chunk = inputs
+    ctx.chunk = chunk
+    ctx.save_for_backward(x, dt, A, B_, C)
+
+
+def _backward(ctx, dy):
+    return (*ssd_scan_backward(*ctx.saved_tensors, ctx.chunk, dy), None)
+
+
+def _backward_state(ctx, dy, dh):
+    """The gradient through y only: training does not differentiate the
+    final state, which only a prefill reads (``ssd_scan_state``'s
+    docstring); a non-zero dh raises."""
+    if dh is not None and bool((dh != 0).any()):
+        raise NotImplementedError("ssd_scan_state has no gradient for its "
+                                  "final state")
+    return _backward(ctx, dy)
+
+
+def register() -> None:
+    """Gives ``repro_torch::ssd_scan`` and ``repro_torch::ssd_scan_state``
+    their autograd formulas."""
+    torch.library.register_autograd("repro_torch::ssd_scan", _backward,
+                                    setup_context=_setup_context)
+    torch.library.register_autograd("repro_torch::ssd_scan_state",
+                                    _backward_state,
+                                    setup_context=_setup_context)

@@ -4,7 +4,8 @@ the final state, for a prefill that caches it): on a CUDA tensor they run
 the kernel (``kernel.ssd_scan_blh``), on a CPU tensor the plain version
 (``ref.ssd_scan_reference``). ``torch.utils.flop_counter.FlopCounterMode``
 counts both by ``ssd_scan_flops``, not by what either implementation
-runs inside."""
+runs inside. The gradient of y is ``backward.py``'s VJP of the chunked
+form, the same on both devices; the final state has none."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -12,6 +13,7 @@ from typing import Tuple
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch.kernels.ssd_scan import backward
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan_blh
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_reference
 
@@ -53,6 +55,9 @@ def _ssd_scan_state(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 @_ssd_scan_state.register_kernel("cuda")
 def _(x, dt, A, B_, C, chunk):
     return ssd_scan_blh(x, dt, A, B_, C, return_state=True)
+
+
+backward.register()
 
 
 @register_flop_formula([torch.ops.repro_torch.ssd_scan,

@@ -11,18 +11,25 @@ layers), which ``convert.lm_params_from_jax`` relies on. Without a mesh
 the reference's sharding constraints are the identity, so there are none
 here.
 
-``forward`` runs the full sequence (training's logits); ``prefill``
-ingests a prompt into the caches and returns the last position's logits;
-``decode_step`` takes one token per sequence. Attention over a sequence
-runs the port's flash attention op and the Mamba-2 scan its SSD op, both
-kernels on the card.
+``forward`` runs the full sequence (training's logits), with each layer
+optionally rematerialized in the backward (``remat``); ``loss_fn`` is
+the training loss over it; ``prefill`` ingests a prompt into the caches
+and returns the last position's logits; ``decode_step`` takes one token
+per sequence. Attention over a sequence runs the port's flash attention
+op and the Mamba-2 scan its SSD op, both kernels on the card, in the
+forward and again in a rematerialized layer's recompute; their
+gradients are the ops' own formulas in torch ops.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs import ArchConfig
 from repro_torch.models import layers as L
@@ -179,17 +186,20 @@ def _cross_kv(xattn: L.Attention, enc_h: torch.Tensor):
     return kx, vx
 
 
-def _encoder_fwd(cfg: ArchConfig, model: LM, batch: Batch,
-                 dtype) -> torch.Tensor:
+def _encoder_fwd(cfg: ArchConfig, model: LM, batch: Batch, dtype,
+                 remat: str = "none") -> torch.Tensor:
     frames = batch["frames"].to(dtype)
     h = torch.einsum("bsd,de->bse", frames, model.frontend_proj.to(dtype))
     h = h + L.sinusoidal_positions(h.shape[1], cfg.d_model,
                                    device=h.device).to(dtype)
-    for blk in model.enc_blocks:
+
+    def layer(h, blk):
         x = blk.ln1(h, cfg.norm_eps)
         h = h + L.attention_fwd(blk.attn, x, theta=cfg.rope_theta,
                                 causal=False, use_rope=False)
-        h = h + blk.mlp(blk.ln2(h, cfg.norm_eps))
+        return h + blk.mlp(blk.ln2(h, cfg.norm_eps))
+    for blk in model.enc_blocks:
+        h = _remat(functools.partial(layer, blk=blk), remat)(h)
     return model.enc_norm(h, cfg.norm_eps)
 
 
@@ -217,24 +227,89 @@ def _dec_xblock(cfg: ArchConfig, blk: DecXBlock, h: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Rematerialization
+# ---------------------------------------------------------------------------
+REMAT = ("none", "dots", "full")
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                  torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``"dots"``: keep the matrix products' outputs, recompute the rest
+    (the JAX package's ``dots_with_no_batch_dims_saveable``; the flash and
+    SSD ops are recomputed)."""
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_BY_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, remat: str):
+    """``fn`` under the remat policy: ``"none"`` keeps every activation;
+    ``"full"`` keeps only the layer's inputs and reruns the layer in the
+    backward (``torch.utils.checkpoint``, non-reentrant); ``"dots"`` is
+    selective checkpointing that keeps the matmul outputs. Without grad
+    there is nothing to save and ``fn`` runs as it is."""
+    if remat not in REMAT:
+        raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    return functools.partial(
+        checkpoint, fn, use_reentrant=False,
+        context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                     _dots_policy))
+
+
+# ---------------------------------------------------------------------------
 # Forward — logits over the full sequence
 # ---------------------------------------------------------------------------
 def forward(cfg: ArchConfig, model: LM, batch: Batch, *,
-            compute_dtype=torch.bfloat16, q_chunk: int = 512
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """→ (logits [B, S, V] float32, aux loss). ``q_chunk`` changes
-    nothing (the JAX package's query blocking)."""
+            compute_dtype=torch.bfloat16, remat: str = "none",
+            q_chunk: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
+    """→ (logits [B, S, V] float32, aux loss). ``remat`` ("none", "dots"
+    or "full") applies to each layer; ``q_chunk`` changes nothing (the
+    JAX package's query blocking)."""
     dtype = compute_dtype
     h = _embed_inputs(cfg, model, batch, dtype)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if cfg.enc_dec is not None:
-        enc_h = _encoder_fwd(cfg, model, batch, dtype)
+        enc_h = _encoder_fwd(cfg, model, batch, dtype, remat)
+
+        def layer(h, enc_h, blk):
+            return _dec_xblock(cfg, blk, h, enc_h, None)[0]
         for blk in model.blocks:
-            h, _ = _dec_xblock(cfg, blk, h, enc_h, None)
+            h = _remat(functools.partial(layer, blk=blk), remat)(h, enc_h)
     else:
+        def layer(h, aux, blk):
+            return _apply_block(cfg, blk, h, aux, prefill=False)[:2]
         for blk in model.blocks:
-            h, aux, _ = _apply_block(cfg, blk, h, aux, prefill=False)
+            h, aux = _remat(functools.partial(layer, blk=blk), remat)(h, aux)
     return _logits(cfg, model, h), aux
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+def loss_fn(cfg: ArchConfig, model: LM, batch: Batch, *,
+            compute_dtype=torch.bfloat16, remat: str = "none",
+            q_chunk: int = 512):
+    """Mean next-token cross-entropy over the positions whose label is
+    not negative, plus the MoE aux loss → (loss + aux, {"loss",
+    "aux_loss", "n_tokens"}), as the JAX package's ``loss_fn``. Each
+    position's log-sum-exp less its label's logit comes from
+    ``F.cross_entropy``, without the reference's [B, S, V] one-hot."""
+    logits, aux = forward(cfg, model, batch, compute_dtype=compute_dtype,
+                          remat=remat, q_chunk=q_chunk)
+    labels = batch["labels"].long()
+    valid = labels >= 0
+    safe = torch.where(valid, labels, torch.zeros_like(labels))
+    nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                          safe.reshape(-1), reduction="none"
+                          ).reshape(labels.shape)
+    n_valid = valid.sum().clamp(min=1)
+    loss = torch.where(valid, nll, torch.zeros_like(nll)).sum() / n_valid
+    return loss + aux, {"loss": loss, "aux_loss": aux,
+                        "n_tokens": n_valid.float()}
 
 
 # ---------------------------------------------------------------------------

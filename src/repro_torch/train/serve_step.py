@@ -2,12 +2,12 @@
 token), and the greedy loop over them, as a Python loop over tokens."""
 from __future__ import annotations
 
-import time
 from typing import Dict, Optional
 
 import torch
 
 from repro_torch.configs import ArchConfig
+from repro_torch.device import sync_clock
 from repro_torch.models import model as M
 
 
@@ -27,12 +27,6 @@ def make_decode_step(cfg: ArchConfig, compute_dtype=torch.bfloat16):
     return decode_step
 
 
-def _sync(device: torch.device) -> float:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    return time.perf_counter()
-
-
 def greedy_generate(cfg: ArchConfig, model: M.LM, batch: M.Batch, *,
                     steps: int, cache_len: int, compute_dtype=torch.bfloat16,
                     timings: Optional[Dict[str, float]] = None):
@@ -44,9 +38,9 @@ def greedy_generate(cfg: ArchConfig, model: M.LM, batch: M.Batch, *,
     prefill_step = make_prefill_step(cfg, cache_len, compute_dtype)
     decode_step = make_decode_step(cfg, compute_dtype)
     device = batch["tokens"].device
-    t0 = _sync(device) if timings is not None else 0.0
+    t0 = sync_clock(device) if timings is not None else 0.0
     logits, cache = prefill_step(model, batch)
-    t1 = _sync(device) if timings is not None else 0.0
+    t1 = sync_clock(device) if timings is not None else 0.0
     tok = logits.argmax(-1).to(torch.int32)[:, None]
     toks = [tok]
     start = batch["tokens"].shape[1]
@@ -56,5 +50,5 @@ def greedy_generate(cfg: ArchConfig, model: M.LM, batch: M.Batch, *,
         toks.append(tok)
     if timings is not None:
         timings["prefill_s"] = t1 - t0
-        timings["decode_s"] = _sync(device) - t1
+        timings["decode_s"] = sync_clock(device) - t1
     return torch.cat(toks[:steps], dim=1), cache

@@ -78,7 +78,7 @@ def test_kernel_wrapper_takes_cuda_tensors_only():
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_bshd(q, k, v)
     with pytest.raises(ValueError, match="head dim"):
-        flash_attention_bshd(q[..., :16], k[..., :16], v[..., :16])
+        flash_attention_bshd(q[..., :8], k[..., :8], v[..., :8])
     with pytest.raises(ValueError, match="multiple of KV"):
         flash_attention_bshd(q[:, :, :1], k.expand(1, 64, 2, 32),
                              v.expand(1, 64, 2, 32))

@@ -1,7 +1,7 @@
 """The port's CUDA kernels on a card: each against its plain torch version,
 the calibrator on the card against the calibrator on the CPU, and the
-language models' serving path on the card against the same port on the
-CPU.
+language models' serving and training paths on the card against the same
+port on the CPU (the ops' backward formulas, a reduced train step).
 
 These tests need a CUDA card and skip elsewhere; the fixture decides, so
 every process collects the same tests. The file imports no JAX, so it
@@ -19,14 +19,17 @@ import torch
 from repro_torch.kernels.flash_attention import (attention_reference,
                                                  flash_attention)
 from repro_torch.kernels.flash_attention.kernel import (
-    flash_attention_3xtf32, flash_attention_bshd, flash_attention_wgmma)
+    flash_attention_3xtf32, flash_attention_bshd, flash_attention_d16,
+    flash_attention_wgmma)
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_reference
 from repro_torch.kernels.ssd_scan.kernel import (ssd_scan_blh, ssd_scan_fma,
                                                  ssd_scan_wgmma)
 from repro_torch.kernels.sweeps import (FLASH_SWEEP, FLASH_TOL,
                                         FULL_FLASH_BF16_ROW_RTOL,
                                         FULL_SSD_RTOL, SEGMENT_SUM_RTOL,
-                                        SSD_RTOL, SSD_SWEEP, WINDOW_SWEEP,
+                                        SSD_RTOL, SSD_SWEEP, STEP_GRAD_ATOL,
+                                        STEP_GRAD_RTOL,
+                                        STEP_SSM_GRAD_ATOL, WINDOW_SWEEP,
                                         WINDOW_TOL, full_widths)
 from repro_torch.kernels.window_agg import (window_aggregate,
                                             window_aggregate_reference)
@@ -566,9 +569,10 @@ def test_forked_parallel_evaluator_after_cuda(cuda):
 
 # ------------------------------------------------ the LM serving path
 def _lm_case(arch):
-    """A reduced() config the card runs: qwen3-1.7b with head dim 64 (the
-    flash kernels take 32, 64 and 128; reduced() has 16), mamba2-1.3b as
-    it is (P = N = 16)."""
+    """A reduced() config on the wgmma flash kernels: qwen3-1.7b with head
+    dim 64 (reduced()'s 16 runs the d-16 kernel, held by the tests of
+    head dim 16 and the reduced train step below), mamba2-1.3b as it is
+    (P = N = 16)."""
     cfg = get_arch(arch).reduced()
     return dataclasses.replace(cfg, d_head=64) if cfg.ssm is None else cfg
 
@@ -650,12 +654,146 @@ def test_ssd_final_state_matches_plain(cuda, dtype, B, L, H, P, G, N):
         assert float((got - ref).abs().max()) <= SSD_RTOL[dtype] * scale
 
 
+# ------------------------------------------------ head dim 16 and training
 @pytest.mark.gpu
-def test_flash_at_head_dim_16_raises_on_the_card(cuda):
-    """reduced()'s head dim 16 is not a flash kernel's: on the card the
-    kernel's ValueError stands, and nothing reroutes to the plain
-    version."""
-    q = torch.randn(1, 32, 4, 16, device=cuda)
-    kv = torch.randn(1, 32, 2, 16, device=cuda)
-    with pytest.raises(ValueError, match="head dim"):
-        flash_attention(q, kv, kv, causal=True)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,causal",
+                         [(8, 128, 128, 4, 2, True), (2, 200, 200, 4, 1, True),
+                          (1, 96, 160, 4, 2, False), (1, 160, 96, 2, 2, True),
+                          (1, 64, 64, 3, 3, False)])
+def test_flash_at_head_dim_16_matches_plain(cuda, B, Sq, Skv, H, KV, causal,
+                                            dtype):
+    """reduced()'s head dim 16 runs on the card: the CUDA-core kernel that
+    both flash sources build for d 16 (``flash_attention_d16``, counted
+    there and nowhere else), within the sweep's tolerance of the plain
+    version, bit-identical on a rerun; a row that sees no key gives 0."""
+    g = torch.Generator(device=cuda).manual_seed(Sq + Skv)
+    dt = getattr(torch, dtype)
+    q = torch.randn(B, Sq, H, 16, device=cuda, generator=g).to(dt)
+    k = torch.randn(B, Skv, KV, 16, device=cuda, generator=g).to(dt)
+    v = torch.randn(B, Skv, KV, 16, device=cuda, generator=g).to(dt)
+    counters = (flash_attention_d16, flash_attention_wgmma,
+                flash_attention_3xtf32)
+    before = [c.launches for c in counters]
+    out = flash_attention(q, k, v, causal=causal)
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 0, 0]
+    ref = attention_reference(q, k, v, causal=causal)
+    assert out.dtype == dt
+    torch.testing.assert_close(out.float(), ref.float(),
+                               atol=FLASH_TOL[dtype], rtol=0)
+    assert torch.equal(_bits(out), _bits(flash_attention(q, k, v,
+                                                         causal=causal)))
+    if causal and Sq > Skv:
+        assert not out[:, :Sq - Skv].any()
+
+
+def _grad_err(got, want):
+    return max(float((a.float().cpu() - b.float().cpu()).abs().max())
+               / float(b.float().abs().max()) for a, b in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,d,causal",
+                         [(2, 192, 192, 4, 2, 16, True),
+                          (1, 128, 256, 4, 2, 16, False),
+                          (1, 256, 256, 4, 2, 128, True),
+                          (1, 96, 224, 8, 2, 64, True),
+                          # three query blocks of the backward's BLOCK_Q
+                          (1, 1100, 1300, 4, 2, 128, True)])
+def test_flash_backward_on_the_card_matches_the_cpu(cuda, B, Sq, Skv, H, KV,
+                                                    d, causal, dtype):
+    """loss.backward() through the flash op on the card (its forward the
+    kernel, its backward the formula in torch ops) against the same on
+    the CPU (the plain forward, the same formula): each gradient within
+    1e-4 (fp32) or 5e-2 (bf16) of its max."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(d + Sq)
+    dt = getattr(torch, dtype)
+    host = [torch.randn(s, generator=g).to(dt)
+            for s in ((B, Sq, H, d), (B, Skv, KV, d), (B, Skv, KV, d),
+                      (B, Sq, H, d))]
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        ins = [t.to(dev).requires_grad_(True) for t in host[:3]]
+        flash_attention(*ins, causal=causal).backward(host[3].to(dev))
+        grads[dev.type] = [t.grad for t in ins]
+    assert all(gr.dtype == dt for gr in grads["cuda"])
+    assert _grad_err(grads["cuda"], grads["cpu"]) <= (
+        1e-4 if dtype == "float32" else 5e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,L,H,P,G,N,chunk", [(2, 256, 4, 64, 1, 128, 64),
+                                               (1, 200, 4, 16, 2, 32, 64)])
+def test_ssd_backward_on_the_card_matches_the_cpu(cuda, B, L, H, P, G, N,
+                                                  chunk, dtype):
+    """loss.backward() through the SSD op on the card (its forward the
+    kernel, its backward the VJP of the chunked form) against the same on
+    the CPU: every gradient (x, dt, A, B_, C) within 1e-4 (fp32) or 1e-1
+    (bf16) of its max."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(L + N)
+    dt = getattr(torch, dtype)
+    host = [torch.randn(B, L, H, P, generator=g).to(dt),
+            torch.nn.functional.softplus(torch.randn(B, L, H, generator=g)),
+            -torch.exp(torch.randn(H, generator=g) * 0.5),
+            (torch.randn(B, L, G, N, generator=g) * 0.3).to(dt),
+            (torch.randn(B, L, G, N, generator=g) * 0.3).to(dt),
+            torch.randn(B, L, H, P, generator=g).to(dt)]
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        ins = [t.to(dev).requires_grad_(True) for t in host[:5]]
+        ssd_scan(*ins, chunk=chunk).backward(host[5].to(dev))
+        grads[dev.type] = [t.grad for t in ins]
+    assert _grad_err(grads["cuda"], grads["cpu"]) <= (
+        1e-4 if dtype == "float32" else 1e-1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["smollm-135m", "mamba2-1.3b",
+                                  "whisper-medium"])
+def test_reduced_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """One fp32 train step of reduced() (head dim 16: the d-16 flash
+    kernel; mamba2's SSD kernel) on the card against the same weights and
+    batch on the CPU: loss and grad norm within rtol 1e-4; each
+    parameter's clipped gradient, read from AdamW's first moment after the
+    step ((1 - b1)·g from zero moments), within STEP_GRAD_RTOL·|g| +
+    STEP_GRAD_ATOL·max|g| (with SSM layers STEP_SSM_GRAD_ATOL·max|g|,
+    ``kernels/sweeps.py`` says why); the updated parameters within 2·lr + 1e-6, a sanity bound only (a
+    first AdamW step moves each by about ±lr, whatever its gradient).
+    With remat "full" the path's kernel runs twice per layer (forward and
+    recompute)."""
+    from repro_torch.train import (TrainHParams, init_train_state,
+                                   make_train_step)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch(arch).reduced()
+    model = M.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    cpu_model = copy.deepcopy(model).cpu()
+    bd = {k: torch.as_tensor(v) for k, v in make_batch(cfg, 32, 4, 0).items()}
+    step = make_train_step(cfg, TrainHParams(compute_dtype=torch.float32,
+                                             grad_accum=2))
+    counter = ssd_scan_fma if cfg.ssm is not None else flash_attention_d16
+    before = counter.launches
+    card, mc = step(init_train_state(model), {k: v.to(cuda)
+                                              for k, v in bd.items()})
+    n_path = (cfg.n_layers if cfg.enc_dec is None
+              else 2 * cfg.n_layers + cfg.enc_dec.n_enc_layers)
+    if cfg.ssm is not None:
+        n_path = sum(k.startswith("ssm") for k in cfg.layer_kinds())
+    # two microbatches, each a forward and a recompute
+    assert counter.launches - before == 2 * 2 * n_path
+    cpu, mp = step(init_train_state(cpu_model), bd)
+    for k in ("loss", "grad_norm", "loss_total"):
+        assert float(mc[k]) == pytest.approx(float(mp[k]), rel=1e-4), k
+    assert card.opt.mu.keys() == cpu.opt.mu.keys()
+    atol = STEP_SSM_GRAD_ATOL if cfg.ssm is not None else STEP_GRAD_ATOL
+    for name, a in card.opt.mu.items():
+        a, b = a.cpu(), cpu.opt.mu[name]
+        assert bool(((a - b).abs() <= STEP_GRAD_RTOL * b.abs()
+                     + atol * b.abs().max()).all()), name
+    tol = 2 * float(mc["lr"]) + 1e-6
+    for (name, a), (_, b) in zip(card.params.named_parameters(),
+                                 cpu.params.named_parameters()):
+        assert float((a.detach().cpu() - b.detach()).abs().max()) <= tol, name
