@@ -152,6 +152,26 @@ JSON line; any failure exits non-zero:
           measure_step_time of schedule_run's archs, ``schedule_run
           --jobs 3 --steps 2`` (its plan line equal to the CPU's); the
           path's kernels by CUDA events for the ``kernels`` line
+  dist    the distribution path, in a child process (``--dist``) whose
+          process group cannot touch later phases: on a one-rank NCCL
+          group and ``make_dev_mesh(1, 1)`` on the card, ``train_loop``
+          at full width (batch 2, seq 4,096, remat "full", bf16) for
+          qwen3-1.7b (2 steps), mamba2-1.3b (1) and granite-moe-1b-a400m
+          (1, its MoE layers on the expert-parallel branch), each without
+          a mesh and then on the mesh (DTensor parameters, the batch
+          sharded by the loader): exactly 56 flash_attention_wgmma / 96
+          ssd_scan_wgmma / 48 flash_attention_wgmma launches a step and
+          nothing else, losses within DIST_LOSS_RTOL and grad norms within
+          DIST_GNORM_RTOL of the mesh-less steps, ms per step, peak memory
+          and DTensor's host overhead per step; then the port's dry-run
+          (``launch/dryrun.py``) in grandchild processes (``--dryrun``,
+          started together) on fake worlds: qwen3-1.7b × train_4k and
+          mamba2-1.3b × prefill_32k on 16×16, mamba2-1.3b × prefill_32k
+          on 2×16×16, and qwen3-1.7b's card step on a fake 1×1 mesh, whose
+          peak estimate must lie within DRYRUN_PEAK_RATIO of the peak the
+          card measured for that step; per-device FLOPs, useful ratio,
+          collectives and wall time (the roofline terms are the simulated
+          TPU-v5e pod's, not the card's)
   paper4  the paper's §4 experiment (examples/vos_scheduler_demo.py) on the
           port's core: six heuristics, 120 jobs each, a 70% power cap; the
           VoS must equal the JAX package's, recorded below
@@ -1898,7 +1918,14 @@ def train_path(dev, gen, smi0) -> list:
     o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                             enable_gqa=True)
     do_t = do.transpose(1, 2)
-    flash_bwd = {"ms": cuda_ms(lambda: flash_attention_backward(
+    from repro_torch.kernels.flash_attention.ops import flash_attention_flops
+    # the bound: q, k, v and dO read once, dQ, dK and dV written once;
+    # 2.5 times the forward's products (S recomputed, dP, dV, dQ, dK)
+    bwd_bytes = 2 * sum(t.numel() * t.element_size() for t in (q, k, v)) \
+        + do.numel() * do.element_size()
+    flash_bwd = {**bound(bwd_bytes, 5 * flash_attention_flops(
+                     q.shape, k.shape, True) // 2, "bfloat16"),
+                 "ms": cuda_ms(lambda: flash_attention_backward(
                      q, k, v, do, True), 5, 1),
                  "library_ms": cuda_ms(lambda: torch.autograd.grad(
                      o_sdpa, (qt, kt, vt), do_t, retain_graph=True), 20, 3),
@@ -1916,7 +1943,15 @@ def train_path(dev, gen, smi0) -> list:
                       s.n_groups, s.d_state, "bfloat16")
     dy = torch.randn(args[0].shape, device=dev, generator=gen).to(
         args[0].dtype)
-    ssd_bwd = {"ms": cuda_ms(lambda: ssd_scan_backward(
+    # the bound: x, dt, A, B, C and dy read once, their gradients (dy's
+    # excepted) written once; the recurrence's least work twice over (its
+    # adjoint runs each product back once)
+    bwd_bytes = 2 * sum(t.numel() * t.element_size() for t in args) \
+        + dy.numel() * dy.element_size()
+    ssd_bwd = {**bound(bwd_bytes, 2 * ssd_flops(
+                   B, S, s.n_heads(mamba.d_model), s.head_dim, s.d_state),
+                   "bfloat16"),
+               "ms": cuda_ms(lambda: ssd_scan_backward(
                    *args, s.chunk_size, dy), 3, 1),
                "library_ms": None,
                "forward_kernel_ms": cuda_ms(lambda: ssd_scan(
@@ -2098,6 +2133,310 @@ def train_path(dev, gen, smi0) -> list:
              **t)
         rows.append((*row, per * len(steps), err, t))
     return rows
+
+
+# ---- the distribution path: a one-rank NCCL mesh on the card, and the
+# dry-run on fake worlds ----------------------------------------------------
+# (arch, steps): train_loop at full width (batch 2, seq 4,096, remat
+# "full", bf16) without a mesh and then on make_dev_mesh(1, 1), in one
+# child process; granite-moe-1b-a400m's layers take the MoE's
+# expert-parallel branch on the mesh
+DIST_ARCHS = (("qwen3-1.7b", 2), ("mamba2-1.3b", 1),
+              ("granite-moe-1b-a400m", 1))
+# on one rank DTensor dispatches the same local ops in the same order, so
+# the mesh's steps repeat the mesh-less ones: the loss, the loss with the
+# MoE's aux term (loss_total) and the grad norm within 1e-6 relative (a few
+# float32 ulps; every run so far read 0.0)
+DIST_LOSS_RTOL = 1e-6
+DIST_GNORM_RTOL = 1e-6
+DIST_TIMEOUT_S = 900
+# the dry-run's cells, each in a grandchild process of the dist child,
+# started together after its card work: (arch, shape, mesh); "1x1" is
+# qwen3-1.7b's train step at the card's shape (batch 2, seq 4,096,
+# TrainHParams()) on a fake world of one rank, whose peak estimate is
+# held against the peak the card measured for the same step
+DRYRUN_CELLS = (("qwen3-1.7b", "train_4k", "16x16"),
+                ("mamba2-1.3b", "prefill_32k", "16x16"),
+                ("mamba2-1.3b", "prefill_32k", "2x16x16"),
+                ("qwen3-1.7b", "train_card", "1x1"))
+# the estimate counts every local storage alive at once and no
+# allocator slack or library workspace (cuBLAS, NCCL): it may fall short
+# of the card's peak by a fifth and should not pass it by more than a
+# quarter
+DRYRUN_PEAK_RATIO = (0.8, 1.25)
+
+
+def dryrun_cell(spec: str) -> None:
+    """(Run as ``chip_smoke.py --dryrun ARCH:SHAPE:MESH``, by the dist
+    child.) One cell of the port's dry-run on a fake world, on the CPU;
+    prints its per-device costs as one JSON line."""
+    import torch.distributed as dist
+    from repro_torch import roofline as RL
+    from repro_torch.configs import SHAPES, ShapeSpec, get_arch
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import make_dev_mesh, make_production_mesh
+    from repro_torch.train import TrainHParams
+
+    arch, shape_name, mesh_name = spec.split(":")
+    cfg = get_arch(arch)
+    hp = None
+    if mesh_name == "1x1":
+        DR.ensure_fake_world(1)
+        mesh = make_dev_mesh(1, 1, device_type="cpu")
+        shape = ShapeSpec(shape_name, TRAIN_FULL["seq"], TRAIN_FULL["batch"],
+                          "train")
+        hp = TrainHParams()
+    else:
+        multi = mesh_name == "2x16x16"
+        DR.ensure_fake_world(512 if multi else 256)
+        mesh = make_production_mesh(multi_pod=multi, device_type="cpu")
+        shape = SHAPES[shape_name]
+    run = DR.lower_cell(cfg, shape, mesh, verbose=False, hp=hp)
+    rep = RL.analyze(run, cfg, shape, mesh_name, mesh.size())
+    dist.destroy_process_group()
+    print(json.dumps({
+        "arch": arch, "shape": shape_name, "mesh": mesh_name,
+        "batch": shape.global_batch, "seq": shape.seq_len,
+        "flops_per_device": run.flops, "bytes_per_device": run.bytes,
+        "collective_bytes_per_device": run.collectives.total_bytes,
+        "collectives": {k: v for k, v in run.collectives.counts.items()
+                        if v},
+        "model_flops": rep.model_flops_global,
+        "useful_ratio": rep.useful_ratio,
+        "peak_bytes_estimate": run.peak_bytes, "arg_bytes": run.arg_bytes,
+        "roofline_s_simulated_tpu_v5e": {
+            "compute": rep.t_compute, "memory": rep.t_memory,
+            "collective": rep.t_collective, "bound": rep.bottleneck,
+            "note": DR.BYTES_NOTE},
+        "dryrun_wall_s": run.seconds}), flush=True)
+
+
+def dist_child() -> None:
+    """(Run as ``chip_smoke.py --dist``, by ``dist_path``.) The
+    distribution path on the card and the dry-run: on a one-rank NCCL
+    process group and ``make_dev_mesh(1, 1)``, runs each arch of
+    DIST_ARCHS through
+    ``train_loop`` without a mesh and on the mesh (the counters set to 0
+    before each step's record is taken): each step exactly 2 launches of
+    the path's kernel per path layer and nothing else, losses and grad
+    norms within DIST_LOSS_RTOL / DIST_GNORM_RTOL of the mesh-less steps,
+    an MoE arch's layers through the expert-parallel branch on the mesh
+    (its entries counted) and never without it, ms per step, peak memory,
+    DTensor's host overhead per step; then the
+    dry-run's cells, in grandchild processes started together: their
+    costs, and the 1×1 cell's peak estimate against the card's peak of
+    the same step. Prints ``dist`` lines, and last a JSON summary."""
+    import contextlib
+    import io
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import init_local_world, make_dev_mesh
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import moe as MOE
+    from repro_torch.train import TrainHParams
+
+    # the MoE's mesh branches, counted where moe_fwd enters them
+    moe_entries = {"_moe_expert_parallel": 0, "_moe_gathered": 0}
+
+    def counting(name, fn):
+        def run(*args, **kwargs):
+            moe_entries[name] += 1
+            return fn(*args, **kwargs)
+        return run
+    for name in moe_entries:
+        setattr(MOE, name, counting(name, getattr(MOE, name)))
+
+    dev = torch.device("cuda", 0)
+    smi0 = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    me = str(Path(__file__).resolve())
+    dry = {}
+    summary = {"archs": {}, "dryrun": {}}
+    try:
+        init_local_world("cuda")
+        mesh = make_dev_mesh(1, 1)
+        emit("dist", case="process_group", backend=dist.get_backend(),
+             world=dist.get_world_size(), mesh=list(mesh.mesh_dim_names),
+             mesh_device_type=mesh.device_type)
+        require(mesh.device_type == "cuda" and dist.get_backend() == "nccl",
+                f"mesh on {mesh.device_type}, backend {dist.get_backend()}")
+        for arch, steps in DIST_ARCHS:
+            cfg = get_arch(arch)
+            attn = cfg.ssm is None
+            n_path = sum(k.startswith("attn" if attn else "ssm")
+                         for k in cfg.layer_kinds())
+            kernel = "flash_attention_wgmma" if attn else "ssd_scan_wgmma"
+            want = {k: 0 for k in zeroed_counters()}
+            want[kernel] = want["flash_attention" if attn else "ssd_scan"] \
+                = 2 * n_path
+            n_moe = sum(k.endswith("moe") for k in cfg.layer_kinds())
+            runs = {}
+            for name, m in (("meshless", None), ("mesh", mesh)):
+                counters = zeroed_counters()
+                recs = []
+                torch.cuda.reset_peak_memory_stats(dev)
+                for k in moe_entries:
+                    moe_entries[k] = 0
+
+                def on_step(step, rec, counters=counters, recs=recs):
+                    recs.append({"step": step, "ms": rec["seconds"] * 1e3,
+                                 "loss": rec["loss"],
+                                 "loss_total": rec["loss_total"],
+                                 "grad_norm": rec["grad_norm"],
+                                 "launches": {k: c.launches
+                                              for k, c in counters.items()},
+                                 "moe_entries": dict(moe_entries)})
+                    for c in counters.values():
+                        c.launches = 0
+                    for k in moe_entries:
+                        moe_entries[k] = 0
+                printed = io.StringIO()
+                with contextlib.redirect_stdout(printed):
+                    state, _ = train_loop(
+                        arch, full=True, seed=SEED, device=dev,
+                        hp=TrainHParams(), on_step=on_step, mesh=m,
+                        steps=steps, batch=TRAIN_FULL["batch"],
+                        seq=TRAIN_FULL["seq"], log_every=10**9)
+                runs[name] = {"steps": recs, "peak_memory":
+                              torch.cuda.max_memory_allocated(dev)}
+                del state
+                torch.cuda.empty_cache()
+                for rec in recs:
+                    require(rec["launches"] == want, f"{arch} {name} step "
+                            f"{rec['step']}: launches {rec['launches']}, "
+                            f"want {want}")
+                    # remat "full" runs each MoE layer's forward twice
+                    ep = 2 * n_moe if m is not None else 0
+                    require(rec["moe_entries"] == {
+                        "_moe_expert_parallel": ep, "_moe_gathered": 0},
+                        f"{arch} {name} step {rec['step']}: MoE branches "
+                        f"{rec['moe_entries']}, want {ep} expert-parallel")
+                    require(math.isfinite(rec["loss"])
+                            and math.isfinite(rec["grad_norm"]),
+                            f"{arch} {name}: {rec}")
+            diffs = []
+            for a, b in zip(runs["meshless"]["steps"], runs["mesh"]["steps"]):
+                dl, dt, dg = (abs(b[k] - a[k]) / abs(a[k]) for k in
+                              ("loss", "loss_total", "grad_norm"))
+                diffs.append({"step": a["step"], "loss_rel": dl,
+                              "loss_total_rel": dt, "grad_norm_rel": dg})
+                require(max(dl, dt) <= DIST_LOSS_RTOL
+                        and dg <= DIST_GNORM_RTOL,
+                        f"{arch} step {a['step']} on the mesh: loss "
+                        f"{b['loss']} vs {a['loss']}, loss_total "
+                        f"{b['loss_total']} vs {a['loss_total']}, grad norm "
+                        f"{b['grad_norm']} vs {a['grad_norm']}")
+            overhead = [b["ms"] - a["ms"] for a, b in
+                        zip(runs["meshless"]["steps"], runs["mesh"]["steps"])]
+            emit("dist", case="train_loop_1x1_mesh", arch=arch,
+                 **TRAIN_FULL | {"steps": steps}, remat="full",
+                 compute_dtype="bfloat16",
+                 launches_per_step={kernel: 2 * n_path},
+                 meshless=runs["meshless"], mesh=runs["mesh"],
+                 rel_diffs=diffs, dtensor_host_overhead_ms=overhead,
+                 tolerance={"loss_rel": DIST_LOSS_RTOL,
+                            "loss_total_rel": DIST_LOSS_RTOL,
+                            "grad_norm_rel": DIST_GNORM_RTOL},
+                 moe_expert_parallel_entries_per_step=[
+                     r["moe_entries"]["_moe_expert_parallel"]
+                     for r in runs["mesh"]["steps"]],
+                 nvidia_smi=smi0)
+            summary["archs"][arch] = {
+                "kernel": kernel, "launches": sum(
+                    r["launches"][kernel] for r in runs["mesh"]["steps"]),
+                "peak_memory": runs["meshless"]["peak_memory"],
+                "mesh_peak_memory": runs["mesh"]["peak_memory"]}
+        dist.destroy_process_group()
+
+        # after the card's steps, so that their host clock does not share
+        # the host's cores with the dry-runs
+        dry.update({c: subprocess.Popen(
+            [sys.executable, me, "--dryrun", ":".join(c)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for c in DRYRUN_CELLS})
+        for cell, p in dry.items():
+            out, err = p.communicate(timeout=DIST_TIMEOUT_S)
+            require(p.returncode == 0, f"dry-run {cell}: exit "
+                    f"{p.returncode}\n{err[-3000:]}")
+            rec = json.loads(out.splitlines()[-1])
+            summary["dryrun"][":".join(cell)] = rec
+            emit("dist", case="dryrun", **rec)
+    finally:
+        for p in dry.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    est = summary["dryrun"]["qwen3-1.7b:train_card:1x1"]["peak_bytes_estimate"]
+    card = summary["archs"]["qwen3-1.7b"]["peak_memory"]
+    ratio = est / card
+    emit("dist", case="peak_estimate_vs_card", arch="qwen3-1.7b",
+         **TRAIN_FULL | {"steps": 1}, estimate_bytes=est, card_bytes=card,
+         ratio=ratio, bounds=DRYRUN_PEAK_RATIO, nvidia_smi=smi0)
+    require(DRYRUN_PEAK_RATIO[0] <= ratio <= DRYRUN_PEAK_RATIO[1],
+            f"dry-run peak {est} against the card's {card}: {ratio}")
+    print(json.dumps(summary), flush=True)
+
+
+def dist_kernel_rows(dev, gen, smi0, summary, train_rows) -> list:
+    """The ``kernels`` rows of the dist phase: its launches on the mesh
+    path; qwen3-1.7b's flash and mamba2-1.3b's SSD at the training shape
+    keep the train phase's measurements of this run (the same kernels at
+    the same shapes), granite-moe-1b-a400m's flash is checked against its
+    plain version and timed at its own."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import (attention_reference,
+                                                     flash_attention)
+    from repro_torch.kernels.sweeps import FULL_FLASH_BF16_ROW_RTOL
+
+    rows = []
+    for arch, rec in summary["archs"].items():
+        kernel = rec["kernel"]
+        prefix = ("flash_attention." if kernel.startswith("flash")
+                  else "ssd_scan.") + f"{kernel} {arch} train step"
+        same = [r for r in train_rows if r[0] == prefix]
+        if same:
+            _, src, replaces, _, err, t = same[0]
+        else:
+            cfg = get_arch(arch)
+            B, S = TRAIN_FULL["batch"], TRAIN_FULL["seq"]
+            shp = (B, S, S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, True)
+            q, k, v = flash_inputs(dev, gen, *shp[:6], "bfloat16")
+            out = flash_attention(q, k, v, causal=True)
+            ref = attention_reference(q, k, v, causal=True)
+            diff = (out.float() - ref.float()).abs()
+            err = float(diff.max())
+            require(bool((diff.amax(-1) <= FULL_FLASH_BF16_ROW_RTOL
+                          * ref.float().abs().amax(-1)).all()),
+                    f"{kernel} at {arch}'s training shape: max |err| {err}")
+            del q, k, v, out, ref, diff
+            t = time_flash(dev, gen, shp, "bfloat16", profile=False)
+            emit("times", case=f"{kernel} {arch} train", shape=list(shp),
+                 dtype="bfloat16", launches=rec["launches"],
+                 nvidia_smi=smi0, **t)
+            src = "flash_attention_sm90"
+            replaces = "src/repro/kernels/flash_attention/kernel.py:87"
+        rows.append((f"{prefix} on a 1x1 NCCL mesh", src, replaces,
+                     rec["launches"], err, t))
+    return rows
+
+
+def dist_path() -> dict:
+    """The ``dist`` phase: ``chip_smoke.py --dist`` in a child process, so
+    that its process group cannot touch later phases; its lines are
+    printed here, and its non-zero exit fails the run. Returns its
+    summary."""
+    child = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                            "--dist"], capture_output=True, text=True,
+                           timeout=DIST_TIMEOUT_S)
+    lines = child.stdout.splitlines()
+    for ln in lines[:-1]:
+        print(ln, flush=True)
+    require(child.returncode == 0, f"dist child: exit {child.returncode}\n"
+            f"{child.stdout[-2000:]}\n{child.stderr[-4000:]}")
+    return json.loads(lines[-1])
 
 
 def paper4() -> None:
@@ -2605,6 +2944,7 @@ def main() -> None:
     serve_path()
     lm_rows = lm_path(dev, gen, smi0)
     train_rows = train_path(dev, gen, smi0)
+    dist_rows = dist_kernel_rows(dev, gen, smi0, dist_path(), train_rows)
     paper4()
 
     # ---- times ---------------------------------------------------------------------
@@ -2691,7 +3031,8 @@ def main() -> None:
               timed_full[("ssd", "bfloat16")]),
              ("ssd_scan.ssd_scan_fma", "ssd_scan", ssd,
               cal_launches["ssd_scan_fma"], full_err[("ssd", "float32")],
-              timed_full[("ssd", "float32")])] + lm_rows + train_rows
+              timed_full[("ssd", "float32")])] + lm_rows + train_rows \
+        + dist_rows
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{src}.cu",
@@ -2712,5 +3053,9 @@ if __name__ == "__main__":
         trace_prefill(sys.argv[2])
     elif sys.argv[1:2] == ["--trace-train"]:
         trace_train(sys.argv[2])
+    elif sys.argv[1:2] == ["--dist"]:
+        dist_child()
+    elif sys.argv[1:2] == ["--dryrun"]:
+        dryrun_cell(sys.argv[2])
     else:
         main()

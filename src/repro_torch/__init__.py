@@ -27,6 +27,12 @@ neither ``jax`` nor ``repro``. What is ported so far:
 - ``models``, ``data``, ``train``, ``launch``: the language models'
   serving path (prefill and greedy decode), with attention and the
   Mamba-2 scan on the flash and SSD kernels;
+- ``sharding``, ``runtime``, ``launch.{mesh,specs,dryrun,hillclimb}``:
+  distribution over a ``torch.distributed`` ``DeviceMesh`` with DTensor
+  placements (the logical-axis rules, the MoE's expert parallelism, the
+  sharded loader, elastic restore, GPipe, compressed all-reduce) and the
+  dry-run, which runs a cell under ``FakeTensorMode`` on a fake process
+  group of 256 or 512 ranks;
 - ``convert``: carries the JAX package's parameters (as numpy) across.
 
 Entry points run on the CUDA card unless the caller passes

@@ -15,8 +15,17 @@ write can then run on an executor. ``restore_checkpoint`` checks every
 leaf's path and shape against a template and writes the values into the
 template's tensors in place (a module through its parameters), since the
 port's train step updates its state in place as the JAX package donates
-its buffers. The JAX package's elastic restore onto another mesh waits
-for the port's mesh.
+its buffers.
+
+Under a mesh a DTensor leaf is saved whole (``full_tensor()``, which every
+rank calls; rank 0 writes the file), in the same format; restoring into a
+DTensor leaf keeps each rank's chunk. In a process group a blocking save,
+and ``CheckpointManager.finalize`` (which ``restore_latest`` calls), end
+with a barrier after rank 0's write, so no rank reads the directory
+before the file is there. ``restore_checkpoint(shardings=)``
+is the elastic path: each leaf is placed onto a ``(mesh, placements)``
+that may differ from the mesh that wrote it, each rank taking its chunk
+of the saved array (no scatter).
 """
 from __future__ import annotations
 
@@ -56,8 +65,15 @@ def _leaves(tree, path: str = ""):
         yield from _leaves(child, p)
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
 def _to_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
+        if _is_dtensor(leaf):
+            leaf = leaf.full_tensor()
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             t = t.view(torch.int16)
@@ -84,7 +100,11 @@ def _restore(tree, path: str, flat: Dict[str, np.ndarray]):
             if tree.dtype == torch.bfloat16:
                 src = src.view(torch.bfloat16)
             with torch.no_grad():
-                tree.copy_(src)
+                if _is_dtensor(tree):
+                    tree.to_local().copy_(_chunk(src, tree.device_mesh,
+                                                 tree.placements))
+                else:
+                    tree.copy_(src)
             return tree
         if isinstance(tree, np.ndarray):
             return arr.astype(tree.dtype)
@@ -104,18 +124,48 @@ def _restore(tree, path: str, flat: Dict[str, np.ndarray]):
                       for v, (p, _) in zip(tree, items))
 
 
+def _chunk(full: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """This rank's chunk of ``full`` under ``placements`` (no collective)."""
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(full, mesh, placements,
+                             src_data_rank=None).to_local()
+
+
+def _writer() -> bool:
+    """Whether this process writes files: rank 0 of a running process
+    group, or a process without one."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _sync_ranks() -> None:
+    """In a process group, wait until every rank gets here."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.barrier()
+
+
 def save_checkpoint(ckpt_dir: str, step: int, tree, *,
                     blocking: bool = True, executor=None):
     """Write ``tree`` at ``step`` atomically (tmp + rename). With
     blocking=False and an ``executor``, the device→host copy happens now
     but the file write is async (returns a future). The caller owns the
-    executor's lifecycle; without one the write is synchronous."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    executor's lifecycle; without one the write is synchronous. In a
+    process group every rank calls it (a DTensor leaf is gathered) and
+    rank 0 writes; the others return the path it writes. A synchronous
+    save ends, on every rank, after rank 0's write; after an async one
+    every rank must wait for it (``CheckpointManager.finalize``)."""
     flat = _flatten(tree)  # device→host sync point
+    final = os.path.join(ckpt_dir, f"step_{step:08d}.npz")
+    sync = blocking or executor is None
+    if not _writer():
+        if sync:
+            _sync_ranks()
+        return final
+    os.makedirs(ckpt_dir, exist_ok=True)
 
     def _write():
         tmp = os.path.join(ckpt_dir, f".tmp_step_{step}.npz")
-        final = os.path.join(ckpt_dir, f"step_{step:08d}.npz")
         with open(tmp, "wb") as f:
             np.savez(f, **flat)
         os.replace(tmp, final)
@@ -124,8 +174,10 @@ def save_checkpoint(ckpt_dir: str, step: int, tree, *,
                        "steps": sorted(all_steps(ckpt_dir))}, f)
         return final
 
-    if blocking or executor is None:
-        return _write()
+    if sync:
+        _write()
+        _sync_ranks()
+        return final
     return executor.submit(_write)
 
 
@@ -145,22 +197,51 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
+def _place(tree, shardings, path: str = ""):
+    """``tree`` with each leaf under a ``(mesh, placements)`` leaf of
+    ``shardings`` (a tree of the same structure) as a DTensor of this
+    rank's chunk; a None in ``shardings`` keeps its subtree as it is."""
+    if shardings is None:
+        return tree
+    if isinstance(shardings, tuple) and len(shardings) == 2 and hasattr(
+            shardings[0], "mesh_dim_names"):
+        from torch.distributed.tensor import DTensor
+        mesh, placements = shardings
+        full = torch.as_tensor(tree)
+        return DTensor.from_local(_chunk(full, mesh, placements), mesh,
+                                  placements, run_check=False,
+                                  shape=full.shape, stride=full.stride())
+    items = _items(tree, path)
+    if items is None or isinstance(tree, nn.Module):
+        raise ValueError(f"{path or 'the tree'}: shardings must reach its "
+                         f"leaves with (mesh, placements)")
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: _place(getattr(tree, f.name),
+                           getattr(shardings, f.name), p)
+            for f, (p, _) in zip(dataclasses.fields(tree), items)})
+    if isinstance(tree, Mapping):
+        return type(tree)({k: _place(v, shardings[k], p)
+                           for (k, v), (p, _) in zip(tree.items(), items)})
+    return type(tree)(_place(v, s, p)
+                      for v, s, (p, _) in zip(tree, shardings, items))
+
+
 def restore_checkpoint(ckpt_dir: str, template, step: Optional[int] = None,
                        shardings=None):
     """Restore into ``template``'s structure (its tensors in place) →
     (tree, step). Every leaf of the template must be in the checkpoint
-    with its shape. ``shardings`` (the JAX package's elastic placement)
-    needs a mesh, which the port does not have yet: it must be None."""
-    if shardings is not None:
-        raise NotImplementedError("restore onto a mesh waits for the port's "
-                                  "mesh")
+    with its shape. With ``shardings`` (a tree like the template's whose
+    leaves are ``(mesh, placements)``), each leaf comes back as a DTensor
+    on that mesh, this rank holding its chunk: THE ELASTIC PATH, the mesh
+    may differ from the one that wrote the checkpoint."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
     path = os.path.join(ckpt_dir, f"step_{step:08d}.npz")
     with np.load(path) as z:
         flat = {k: z[k] for k in z.files}
-    return _restore(template, "", flat), step
+    return _place(_restore(template, "", flat), shardings), step
 
 
 class CheckpointManager:
@@ -194,6 +275,8 @@ class CheckpointManager:
         return True
 
     def finalize(self):
+        """Wait for the write in flight, and in a process group for every
+        rank (all call it): after it each rank reads what rank 0 wrote."""
         if self._pending is not None:
             self._pending.result()
             self._pending = None
@@ -201,8 +284,11 @@ class CheckpointManager:
             self._executor.shutdown(wait=True)
             self._executor = None
         self._gc()
+        _sync_ranks()
 
     def _gc(self):
+        if not _writer():
+            return
         steps = all_steps(self.dir)
         for s in steps[:-self.keep]:
             try:

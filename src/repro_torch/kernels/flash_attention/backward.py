@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+from typing import Tuple
 
 import torch
 
@@ -126,6 +127,21 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     return dq.contiguous(), dk.contiguous(), dv.contiguous()
 
 
+@torch.library.custom_op("repro_torch::flash_attention_backward",
+                         mutates_args=())
+def _flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, do: torch.Tensor,
+                              causal: bool
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    return flash_attention_backward(q, k, v, do, causal)
+
+
+@_flash_attention_backward.register_fake
+def _(q, k, v, do, causal):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
 def _setup_context(ctx, inputs, output):
     q, k, v, causal = inputs
     ctx.causal = causal
@@ -134,11 +150,15 @@ def _setup_context(ctx, inputs, output):
 
 def _backward(ctx, grad):
     q, k, v = ctx.saved_tensors
-    dq, dk, dv = flash_attention_backward(q, k, v, grad, ctx.causal)
+    dq, dk, dv = torch.ops.repro_torch.flash_attention_backward(
+        q, k, v, grad, ctx.causal)
     return dq, dk, dv, None
 
 
 def register() -> None:
-    """Gives ``repro_torch::flash_attention`` its autograd formula."""
+    """Gives ``repro_torch::flash_attention`` its autograd formula: the
+    custom op ``repro_torch::flash_attention_backward``, one op to
+    ``FlopCounterMode``, to ``FakeTensorMode`` and to DTensor (whose rule
+    is in ``ops.py``), the formula above inside."""
     torch.library.register_autograd("repro_torch::flash_attention",
                                     _backward, setup_context=_setup_context)

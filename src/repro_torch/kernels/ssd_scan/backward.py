@@ -93,7 +93,8 @@ def ssd_scan_backward(x, dt, A, B_, C, chunk: int, dy: torch.Tensor):
         ins = [t.detach().requires_grad_(True) for t in (x, dt, A, B_, C)]
         y, _ = ssd_chunked(*ins, chunk)
         grads = torch.autograd.grad(y, ins, dy.to(y.dtype))
-    return tuple(g.to(t.dtype) for g, t in zip(grads, (x, dt, A, B_, C)))
+    return tuple(g.to(t.dtype).contiguous()
+                 for g, t in zip(grads, (x, dt, A, B_, C)))
 
 
 def _setup_context(ctx, inputs, output):
@@ -102,8 +103,48 @@ def _setup_context(ctx, inputs, output):
     ctx.save_for_backward(x, dt, A, B_, C)
 
 
+def _local_placements(mesh, dy_pl, n_groups: int):
+    """The placements under which each shard's VJP is its part of the
+    whole, read from dy's (the forward's output placements) per mesh dim:
+    batch-split (dA partial), heads-split (A over heads; B_/C over groups,
+    or partial where one group is shared by every head), or replicated.
+    → (dy's, the inputs', the gradients')."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    r, part = Replicate(), Partial()
+    dy_, ins, outs = [], [[] for _ in range(5)], [[] for _ in range(5)]
+    for p in dy_pl:
+        if p == Shard(0):
+            pin = (Shard(0), Shard(0), r, Shard(0), Shard(0))
+            pout = (Shard(0), Shard(0), part, Shard(0), Shard(0))
+        elif p == Shard(2):
+            bc = Shard(2) if n_groups > 1 else r
+            pin = (Shard(2), Shard(2), Shard(0), bc, bc)
+            pout = pin[:3] + ((bc,) * 2 if n_groups > 1 else (part, part))
+        else:
+            p = r
+            pin = pout = (r,) * 5
+        dy_.append(p)
+        for lst, q in zip(ins, pin):
+            lst.append(q)
+        for lst, q in zip(outs, pout):
+            lst.append(q)
+    return dy_, ins, outs
+
+
 def _backward(ctx, dy):
-    return (*ssd_scan_backward(*ctx.saved_tensors, ctx.chunk, dy), None)
+    x, dt, A, B_, C = ctx.saved_tensors
+    from torch.distributed.tensor import DTensor
+    if not isinstance(dy, DTensor):
+        return (*ssd_scan_backward(x, dt, A, B_, C, ctx.chunk, dy), None)
+    # on DTensors: each shard's VJP on its local tensors (local_map), the
+    # shards laid out as the forward's output
+    from torch.distributed.tensor.experimental import local_map
+    mesh = dy.device_mesh
+    dy_pl, ins, outs = _local_placements(mesh, dy.placements, B_.shape[2])
+    vjp = local_map(ssd_scan_backward, out_placements=tuple(outs),
+                    in_placements=(*ins, None, dy_pl), device_mesh=mesh,
+                    redistribute_inputs=True)
+    return (*vjp(x, dt, A, B_, C, ctx.chunk, dy), None)
 
 
 def _backward_state(ctx, dy, dh):

@@ -5,14 +5,18 @@ the kernel (``kernel.ssd_scan_blh``), on a CPU tensor the plain version
 (``ref.ssd_scan_reference``). ``torch.utils.flop_counter.FlopCounterMode``
 counts both by ``ssd_scan_flops``, not by what either implementation
 runs inside. The gradient of y is ``backward.py``'s VJP of the chunked
-form, the same on both devices; the final state has none."""
+form, the same on both devices; the final state has none. Under
+``FakeTensorMode`` the ops give empty tensors of their outputs' shapes;
+on DTensors they run on the local shards under ``ssd_sharding``'s rule."""
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
 from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch.kernels import sharding_rules
 from repro_torch.kernels.ssd_scan import backward
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan_blh
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_reference
@@ -22,7 +26,12 @@ from repro_torch.kernels.ssd_scan.ref import ssd_scan_reference
                          device_types="cpu")
 def _ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
               B_: torch.Tensor, C: torch.Tensor, chunk: int) -> torch.Tensor:
-    return ssd_scan_reference(x, dt, A, B_, C)
+    return ssd_scan_reference(x, dt, A, B_, C).contiguous()
+
+
+@_ssd_scan.register_fake
+def _(x, dt, A, B_, C, chunk):
+    return torch.empty_like(x)
 
 
 @_ssd_scan.register_kernel("cuda")
@@ -49,7 +58,15 @@ def ssd_scan_flops(x_shape, b_shape, chunk: int) -> int:
 def _ssd_scan_state(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                     B_: torch.Tensor, C: torch.Tensor, chunk: int
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    return ssd_scan_reference(x, dt, A, B_, C, return_state=True)
+    y, h = ssd_scan_reference(x, dt, A, B_, C, return_state=True)
+    return y.contiguous(), h.contiguous()
+
+
+@_ssd_scan_state.register_fake
+def _(x, dt, A, B_, C, chunk):
+    Bb, _, H, P = x.shape
+    return (torch.empty_like(x),
+            x.new_empty((Bb, H, P, B_.shape[3]), dtype=torch.float32))
 
 
 @_ssd_scan_state.register_kernel("cuda")
@@ -58,6 +75,49 @@ def _(x, dt, A, B_, C, chunk):
 
 
 backward.register()
+
+
+def _ssd_strategies(n_out: int, state_heads_dim: int = 1):
+    """Per mesh dim: all replicated; batch-sharded (A replicated); or
+    heads-sharded, A over its heads, and B/C over their groups (G heads'
+    groups split with the heads; with one group B/C are replicated, see
+    ``_ssd_valid``)."""
+    r, b = Replicate(), Shard(0)
+    outs_b = [b] * n_out
+    outs_h = [Shard(2), Shard(state_heads_dim)][:n_out]
+    return [([r] * n_out, [r, r, r, r, r, None]),
+            (outs_b, [b, b, r, b, b, None]),
+            (outs_h, [Shard(2), Shard(2), Shard(0), Shard(2), Shard(2),
+                      None]),
+            (outs_h, [Shard(2), Shard(2), Shard(0), r, r, None])]
+
+
+def ssd_sharding(x, dt, A, B_, C, chunk):
+    return _ssd_strategies(1)
+
+
+def ssd_state_sharding(x, dt, A, B_, C, chunk):
+    return _ssd_strategies(2)
+
+
+def _ssd_valid(specs, args) -> bool:
+    """Heads split n ways need n | H; B/C split with them (n | G) when
+    there are several groups, replicated when there is one: local head j
+    then reads group j // (H/G) of its own shard."""
+    x, dt, A, B_, C = specs[:5]
+    n = sharding_rules.shard_count(x, 2)
+    G = B_.shape[2]
+    if x.shape[2] % n or sharding_rules.shard_count(B_, 2) != (
+            n if G > 1 else 1):
+        return False
+    return (tuple(dt.placements) == tuple(x.placements)
+            and tuple(B_.placements) == tuple(C.placements))
+
+
+sharding_rules.register([torch.ops.repro_torch.ssd_scan.default],
+                        ssd_sharding, _ssd_valid)
+sharding_rules.register([torch.ops.repro_torch.ssd_scan_state.default],
+                        ssd_state_sharding, _ssd_valid)
 
 
 @register_flop_formula([torch.ops.repro_torch.ssd_scan,

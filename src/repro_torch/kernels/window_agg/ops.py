@@ -4,12 +4,16 @@ leaves it to XLA outside Pallas).
 
 ``window_aggregate`` is the custom op ``repro_torch::window_aggregate``,
 so ``torch.utils.flop_counter.FlopCounterMode`` counts it by its FLOP
-formula, not by what it runs inside."""
+formula, not by what it runs inside. Under ``FakeTensorMode`` it gives an
+empty tensor of the output's shape; on DTensors it runs on the local
+shards under ``window_sharding``'s rule."""
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
 from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch.kernels import sharding_rules
 from repro_torch.kernels.window_agg.kernel import segment_reduce
 
 
@@ -35,6 +39,35 @@ def _window_aggregate(x: torch.Tensor, agg: str, window: int,
     if agg == "mean":
         out = out / window
     return out
+
+
+@_window_aggregate.register_fake
+def _(x, agg, window, stride):
+    T, C = x.shape
+    return x.new_empty(((T - window) // stride + 1, C))
+
+
+def window_sharding(x, agg, window, stride):
+    """Per mesh dim: replicated; columns split (each column is its own
+    series); rows split only where each window is one segment (window ==
+    stride) and, by ``_window_valid``, every shard holds whole segments."""
+    r = Replicate()
+    out = [([r], [r, None, None, None]),
+           ([Shard(1)], [Shard(1), None, None, None])]
+    if window == stride:
+        out.append(([Shard(0)], [Shard(0), None, None, None]))
+    return out
+
+
+def _window_valid(specs, args) -> bool:
+    x, stride = specs[0], args[3]
+    n = sharding_rules.shard_count(x, 0)
+    return n == 1 or (x.shape[0] % n == 0
+                      and (x.shape[0] // n) % stride == 0)
+
+
+sharding_rules.register([torch.ops.repro_torch.window_aggregate.default],
+                        window_sharding, _window_valid)
 
 
 @register_flop_formula(torch.ops.repro_torch.window_aggregate)

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import sharding as shd
 from repro_torch.kernels.flash_attention.ops import flash_attention
 
 DEFAULT_Q_CHUNK = 512
@@ -41,6 +42,13 @@ def _dense_init(generator: torch.Generator, shape, in_axis_size: int
     return nn.Parameter(w * scale)
 
 
+def weight(w: torch.Tensor, dtype) -> torch.Tensor:
+    """A parameter as a product reads it: in ``dtype``, and under a mesh
+    gathered over the data axes (FSDP's gather at use; its gradient is
+    the reduce-scatter), its tensor-parallel split over "model" kept."""
+    return shd.gather_data_axes(w.to(dtype))
+
+
 def _ones(d: int, device) -> nn.Parameter:
     return nn.Parameter(torch.ones(d, device=device))
 
@@ -48,13 +56,17 @@ def _ones(d: int, device) -> nn.Parameter:
 # ---------------------------------------------------------------------------
 # RMSNorm
 # ---------------------------------------------------------------------------
+def rmsnorm_axes():
+    return {"scale": ("embed",)}
+
+
 class RMSNorm(nn.Module):
     def __init__(self, d: int, device=None):
         super().__init__()
         self.scale = _ones(d, device)
 
     def forward(self, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-        return rmsnorm_nc(x, self.scale, eps)
+        return rmsnorm_nc(x, weight(self.scale, self.scale.dtype), eps)
 
 
 def rmsnorm_nc(x: torch.Tensor, scale: torch.Tensor,
@@ -122,16 +134,16 @@ class Attention(nn.Module):
             self.k_norm = _ones(head_dim, dev)
 
     def q(self, x: torch.Tensor) -> torch.Tensor:
-        q = torch.einsum("bsd,dhk->bshk", x, self.wq.to(x.dtype))
+        q = torch.einsum("bsd,dhk->bshk", x, weight(self.wq, x.dtype))
         return rmsnorm_nc(q, self.q_norm) if self.qk_norm else q
 
     def qkv(self, x: torch.Tensor, positions: torch.Tensor, theta: float,
             use_rope: bool) -> Tuple[torch.Tensor, torch.Tensor,
                                      torch.Tensor]:
         dtype = x.dtype
-        q = torch.einsum("bsd,dhk->bshk", x, self.wq.to(dtype))
-        k = torch.einsum("bsd,dhk->bshk", x, self.wk.to(dtype))
-        v = torch.einsum("bsd,dhk->bshk", x, self.wv.to(dtype))
+        q = torch.einsum("bsd,dhk->bshk", x, weight(self.wq, dtype))
+        k = torch.einsum("bsd,dhk->bshk", x, weight(self.wk, dtype))
+        v = torch.einsum("bsd,dhk->bshk", x, weight(self.wv, dtype))
         if self.qk_norm:
             q = rmsnorm_nc(q, self.q_norm)
             k = rmsnorm_nc(k, self.k_norm)
@@ -141,7 +153,20 @@ class Attention(nn.Module):
         return q, k, v
 
     def out(self, o: torch.Tensor) -> torch.Tensor:
-        return torch.einsum("bshk,hkd->bsd", o, self.wo.to(o.dtype))
+        return torch.einsum("bshk,hkd->bsd", o, weight(self.wo, o.dtype))
+
+
+def attention_axes(qk_norm: bool):
+    p = {
+        "wq": ("embed", "heads", "head_dim"),
+        "wk": ("embed", "kv_heads", "head_dim"),
+        "wv": ("embed", "kv_heads", "head_dim"),
+        "wo": ("heads", "head_dim", "embed"),
+    }
+    if qk_norm:
+        p["q_norm"] = ("head_dim",)
+        p["k_norm"] = ("head_dim",)
+    return p
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -236,6 +261,11 @@ def attention_readonly(attn: Attention, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 # MLP (SwiGLU)
 # ---------------------------------------------------------------------------
+def mlp_axes():
+    return {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+            "w_down": ("mlp", "embed")}
+
+
 class MLP(nn.Module):
     def __init__(self, generator: torch.Generator, d_model: int, d_ff: int):
         super().__init__()
@@ -245,10 +275,10 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = x.dtype
-        g = torch.einsum("bsd,df->bsf", x, self.w_gate.to(dtype))
-        u = torch.einsum("bsd,df->bsf", x, self.w_up.to(dtype))
+        g = torch.einsum("bsd,df->bsf", x, weight(self.w_gate, dtype))
+        u = torch.einsum("bsd,df->bsf", x, weight(self.w_up, dtype))
         h = F.silu(g) * u
-        return torch.einsum("bsf,fd->bsd", h, self.w_down.to(dtype))
+        return torch.einsum("bsf,fd->bsd", h, weight(self.w_down, dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -263,14 +293,53 @@ def init_embedding(generator: torch.Generator, vocab: int,
 def embed_tokens(table: torch.Tensor, tokens: torch.Tensor,
                  dtype) -> torch.Tensor:
     """The rows of ``tokens``, in ``dtype`` (the gather before the cast,
-    which gives the same values as the reference's cast of the table)."""
-    return table[tokens].to(dtype)
+    which gives the same values as the reference's cast of the table).
+    A table whose rows are split over mesh axes is looked up
+    vocab-parallel (``_embed_vocab_parallel``)."""
+    if shd.rows_split(table):
+        return _embed_vocab_parallel(table, tokens).to(dtype)
+    return F.embedding(tokens, table).to(dtype)
+
+
+def _embed_vocab_parallel(table: torch.Tensor,
+                          tokens: torch.Tensor) -> torch.Tensor:
+    """Each rank looks up the tokens that fall in its rows of the table
+    (zeros for the others); the sum over the axes that split the rows is
+    a DTensor ``Partial``, whose gradient reaches each rank's rows
+    whole. (DTensor's own lookup gives a masked partial, whose backward
+    torch 2.11 cannot take from a summed gradient.)"""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = table.device_mesh
+    split = [i for i, p in enumerate(table.placements) if p == Shard(0)]
+    tok = tokens if isinstance(tokens, DTensor) else DTensor.from_local(
+        tokens, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    tok_pl = [Replicate() if i in split else p
+              for i, p in enumerate(tok.placements)]
+    tok = tok.redistribute(mesh, tok_pl)
+    idx, n = 0, 1
+    for i in split:
+        idx = idx * mesh.size(i) + mesh.get_local_rank(i)
+        n *= mesh.size(i)
+    rows = table.shape[0] // n
+    lo = idx * rows
+    # the local rows' gradient: partial over the axes whose ranks look up
+    # different tokens with the same rows
+    grad_pl = [p if i in split else
+               Partial() if isinstance(tok_pl[i], Shard) else Replicate()
+               for i, p in enumerate(table.placements)]
+    local = table.to_local(grad_placements=grad_pl)
+    t = tok.to_local()
+    mine = (t >= lo) & (t < lo + rows)
+    out = F.embedding((t - lo).clamp(0, rows - 1), local) \
+        * mine[..., None].to(local.dtype)
+    out_pl = [Partial() if i in split else p for i, p in enumerate(tok_pl)]
+    return DTensor.from_local(out, mesh, out_pl, run_check=False)
 
 
 def logits_fwd(table_or_unembed: torch.Tensor, x: torch.Tensor, tied: bool,
                real_vocab: int) -> torch.Tensor:
     """Project to the (padded) vocab; padded rows masked to -1e30; fp32."""
-    w = table_or_unembed.to(x.dtype)
+    w = weight(table_or_unembed, x.dtype)
     if tied:
         logits = torch.einsum("bsd,vd->bsv", x, w)
     else:
@@ -278,5 +347,6 @@ def logits_fwd(table_or_unembed: torch.Tensor, x: torch.Tensor, tied: bool,
     logits = logits.float()
     V = logits.shape[-1]
     if V > real_vocab:
-        logits[..., real_vocab:] = -1e30
+        pad = torch.arange(V, device=logits.device) >= real_vocab
+        logits.masked_fill_(pad, -1e30)
     return logits

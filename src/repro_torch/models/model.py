@@ -7,9 +7,11 @@ groups, the port holds one module per layer in an ``nn.ModuleList``, in
 ``cfg.layer_kinds()`` order, and loops over them; caches are one dict per
 layer. Parameter names follow the reference's tree (``blocks.3.attn.wq``
 is ``params["blocks"][3 % P]["attn"]["wq"][3 // P]`` for a pattern of P
-layers), which ``convert.lm_params_from_jax`` relies on. Without a mesh
-the reference's sharding constraints are the identity, so there are none
-here.
+layers), which ``convert.lm_params_from_jax`` relies on. ``param_axes``
+gives each parameter's logical axes for the sharding rules. The JAX
+package's batch constraints sit where it puts them (the embedded input,
+the end of each layer group, the logits): under a mesh they redistribute
+DTensor activations, otherwise they are the identity.
 
 ``forward`` runs the full sequence (training's logits), with each layer
 optionally rematerialized in the backward (``remat``); ``loss_fn`` is
@@ -31,6 +33,7 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch import sharding as shd
 from repro_torch.configs import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
@@ -118,6 +121,61 @@ class LM(nn.Module):
         return self.embed if self.cfg.tie_embeddings else self.unembed
 
 
+def _block_axes(cfg: ArchConfig, kind: str) -> Dict[str, dict]:
+    mixer, ff = kind.split("+")
+    p = {"ln1": L.rmsnorm_axes()}
+    if mixer == "attn":
+        p["attn"] = L.attention_axes(cfg.qk_norm)
+    else:
+        p["ssm"] = SSM.ssm_axes()
+    if ff in ("mlp", "moe"):
+        p["ln2"] = L.rmsnorm_axes()
+        p["mlp" if ff == "mlp" else "moe"] = (
+            L.mlp_axes() if ff == "mlp" else MOE.moe_axes())
+    return p
+
+
+def _dec_xblock_axes(cfg: ArchConfig) -> Dict[str, dict]:
+    return {
+        "ln1": L.rmsnorm_axes(), "attn": L.attention_axes(cfg.qk_norm),
+        "ln_x": L.rmsnorm_axes(), "xattn": L.attention_axes(cfg.qk_norm),
+        "ln2": L.rmsnorm_axes(), "mlp": L.mlp_axes(),
+    }
+
+
+def _flat_axes(tree: dict, prefix: str, out: Dict[str, tuple]) -> None:
+    for name, v in tree.items():
+        if isinstance(v, dict):
+            _flat_axes(v, f"{prefix}{name}.", out)
+        else:
+            out[prefix + name] = v
+
+
+def param_axes(cfg: ArchConfig) -> Dict[str, tuple]:
+    """{parameter name of ``LM(cfg)``: its logical axes}, one name per
+    entry of ``state_dict``. The JAX package's tree stacks each pattern
+    position's layers with a leading "layers" axis, which no profile
+    shards; the port's layers are one module each, without it."""
+    ax = {"embed": ("vocab_in", "embed_in"),
+          "final_norm": L.rmsnorm_axes()}
+    if not cfg.tie_embeddings:
+        ax["unembed"] = ("embed", "vocab")
+    if cfg.frontend is not None:
+        ax["frontend_proj"] = ("embed", None)
+    if cfg.enc_dec is not None:
+        ax["enc_blocks"] = {str(i): _block_axes(cfg, "attn+mlp")
+                            for i in range(cfg.enc_dec.n_enc_layers)}
+        ax["enc_norm"] = L.rmsnorm_axes()
+        ax["blocks"] = {str(i): _dec_xblock_axes(cfg)
+                        for i in range(cfg.n_layers)}
+    else:
+        ax["blocks"] = {str(i): _block_axes(cfg, kind)
+                        for i, kind in enumerate(cfg.layer_kinds())}
+    out: Dict[str, tuple] = {}
+    _flat_axes(ax, "", out)
+    return out
+
+
 def init_params(cfg: ArchConfig, generator: torch.Generator) -> LM:
     """The model of ``cfg`` with its weights drawn from ``generator`` (on
     the generator's device), as the JAX package draws them: normal ·
@@ -135,12 +193,26 @@ def _embed_inputs(cfg: ArchConfig, model: LM, batch: Batch,
     if cfg.frontend == "patch_stub":
         n = cfg.n_prefix_tokens
         patches = torch.einsum("bnd,de->bne", batch["patches"].to(dtype),
-                               model.frontend_proj.to(dtype))
+                               L.weight(model.frontend_proj, dtype))
         h = torch.cat([patches, h[:, n:]], dim=1)
     if cfg.positional == "sinusoidal":
         h = h + L.sinusoidal_positions(h.shape[1], cfg.d_model,
                                        device=h.device).to(dtype)
-    return h
+    return shd.constrain_batch(h)
+
+
+def _residual(h: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """h + out, kept batch-sharded under a mesh: a row-parallel product
+    (attention's or the MLP's output over heads or hidden units split
+    over "model") leaves a partial sum, which is reduced here, once per
+    residual add, rather than wherever DTensor would next need it."""
+    return shd.constrain_batch(h + out)
+
+
+def _group_end(cfg: ArchConfig, i: int) -> bool:
+    """Whether layer i ends a group of the layer pattern (where the JAX
+    package's scan body constrains the activations to the batch)."""
+    return (i + 1) % len(cfg.scan_groups()[0]) == 0
 
 
 def _logits(cfg: ArchConfig, model: LM, h: torch.Tensor) -> torch.Tensor:
@@ -170,34 +242,34 @@ def _apply_block(cfg: ArchConfig, blk: Block, h: torch.Tensor,
         out, new_cache = SSM.ssm_fwd(blk.ssm, x, return_state=True)
     else:
         out = SSM.ssm_fwd(blk.ssm, x)
-    h = h + out
+    h = _residual(h, out)
     if ff == "mlp":
-        h = h + blk.mlp(blk.ln2(h, cfg.norm_eps))
+        h = _residual(h, blk.mlp(blk.ln2(h, cfg.norm_eps)))
     elif ff == "moe":
         y, a = MOE.moe_fwd(blk.moe, blk.ln2(h, cfg.norm_eps))
-        h = h + y
+        h = _residual(h, y)
         aux = aux + a
     return h, aux, new_cache
 
 
 def _cross_kv(xattn: L.Attention, enc_h: torch.Tensor):
-    kx = torch.einsum("bsd,dhk->bshk", enc_h, xattn.wk.to(enc_h.dtype))
-    vx = torch.einsum("bsd,dhk->bshk", enc_h, xattn.wv.to(enc_h.dtype))
+    kx = torch.einsum("bsd,dhk->bshk", enc_h, L.weight(xattn.wk, enc_h.dtype))
+    vx = torch.einsum("bsd,dhk->bshk", enc_h, L.weight(xattn.wv, enc_h.dtype))
     return kx, vx
 
 
 def _encoder_fwd(cfg: ArchConfig, model: LM, batch: Batch, dtype,
                  remat: str = "none") -> torch.Tensor:
     frames = batch["frames"].to(dtype)
-    h = torch.einsum("bsd,de->bse", frames, model.frontend_proj.to(dtype))
+    h = torch.einsum("bsd,de->bse", frames, L.weight(model.frontend_proj, dtype))
     h = h + L.sinusoidal_positions(h.shape[1], cfg.d_model,
                                    device=h.device).to(dtype)
 
     def layer(h, blk):
         x = blk.ln1(h, cfg.norm_eps)
-        h = h + L.attention_fwd(blk.attn, x, theta=cfg.rope_theta,
-                                causal=False, use_rope=False)
-        return h + blk.mlp(blk.ln2(h, cfg.norm_eps))
+        h = _residual(h, L.attention_fwd(blk.attn, x, theta=cfg.rope_theta,
+                                         causal=False, use_rope=False))
+        return _residual(h, blk.mlp(blk.ln2(h, cfg.norm_eps)))
     for blk in model.enc_blocks:
         h = _remat(functools.partial(layer, blk=blk), remat)(h)
     return model.enc_norm(h, cfg.norm_eps)
@@ -211,16 +283,16 @@ def _dec_xblock(cfg: ArchConfig, blk: DecXBlock, h: torch.Tensor,
     kw = dict(theta=cfg.rope_theta, use_rope=False)
     cache = None
     if cache_len is None:
-        h = h + L.attention_fwd(blk.attn, x, causal=True, **kw)
+        h = _residual(h, L.attention_fwd(blk.attn, x, causal=True, **kw))
     else:
         out, (k, v) = L.attention_prefill(blk.attn, x, cache_len=cache_len,
                                           **kw)
-        h = h + out
+        h = _residual(h, out)
     x = blk.ln_x(h, cfg.norm_eps)
     kx, vx = _cross_kv(blk.xattn, enc_h)
-    h = h + L.attention_fwd(blk.xattn, x, causal=False, kv_override=(kx, vx),
-                            **kw)
-    h = h + blk.mlp(blk.ln2(h, cfg.norm_eps))
+    h = _residual(h, L.attention_fwd(blk.xattn, x, causal=False,
+                                     kv_override=(kx, vx), **kw))
+    h = _residual(h, blk.mlp(blk.ln2(h, cfg.norm_eps)))
     if cache_len is not None:
         cache = {"k": k, "v": v, "xk": kx, "xv": vx}
     return h, cache
@@ -247,17 +319,28 @@ def _remat(fn, remat: str):
     ``"full"`` keeps only the layer's inputs and reruns the layer in the
     backward (``torch.utils.checkpoint``, non-reentrant); ``"dots"`` is
     selective checkpointing that keeps the matmul outputs. Without grad
-    there is nothing to save and ``fn`` runs as it is."""
+    there is nothing to save and ``fn`` runs as it is. The recompute runs
+    under the mesh of the call (``sharding.use_mesh``): on the card the
+    backward runs in autograd's device thread, which does not see the
+    caller's context."""
     if remat not in REMAT:
         raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
     if remat == "none" or not torch.is_grad_enabled():
         return fn
+    mesh = shd.current_mesh()
+    if mesh is not None:
+        fn = functools.partial(_under_mesh, fn, mesh)
     if remat == "full":
         return functools.partial(checkpoint, fn, use_reentrant=False)
     return functools.partial(
         checkpoint, fn, use_reentrant=False,
         context_fn=functools.partial(create_selective_checkpoint_contexts,
                                      _dots_policy))
+
+
+def _under_mesh(fn, mesh, *args):
+    with shd.use_mesh(mesh):
+        return fn(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -280,11 +363,13 @@ def forward(cfg: ArchConfig, model: LM, batch: Batch, *,
         for blk in model.blocks:
             h = _remat(functools.partial(layer, blk=blk), remat)(h, enc_h)
     else:
-        def layer(h, aux, blk):
-            return _apply_block(cfg, blk, h, aux, prefill=False)[:2]
-        for blk in model.blocks:
-            h, aux = _remat(functools.partial(layer, blk=blk), remat)(h, aux)
-    return _logits(cfg, model, h), aux
+        def layer(h, aux, blk, end):
+            h, aux = _apply_block(cfg, blk, h, aux, prefill=False)[:2]
+            return (shd.constrain_batch(h) if end else h), aux
+        for i, blk in enumerate(model.blocks):
+            h, aux = _remat(functools.partial(
+                layer, blk=blk, end=_group_end(cfg, i)), remat)(h, aux)
+    return shd.constrain_batch(_logits(cfg, model, h), extra=("model",)), aux
 
 
 # ---------------------------------------------------------------------------
@@ -356,9 +441,11 @@ def prefill(cfg: ArchConfig, model: LM, batch: Batch, cache_len: int, *,
             caches.append(c)
     else:
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
-        for blk in model.blocks:
+        for i, blk in enumerate(model.blocks):
             h, aux, c = _apply_block(cfg, blk, h, aux, prefill=True,
                                      cache_len=cache_len)
+            if _group_end(cfg, i):
+                h = shd.constrain_batch(h)
             caches.append(c)
     return _logits(cfg, model, h[:, -1:])[:, 0], caches
 
@@ -386,18 +473,19 @@ def decode_step(cfg: ArchConfig, model: LM, cache: Cache,
             out, (k, v) = L.attention_decode(
                 blk.attn, x, (c["k"], c["v"]), pos, theta=cfg.rope_theta,
                 use_rope=cfg.positional == "rope")
-            h = h + out
+            h = _residual(h, out)
             new = {**c, "k": k, "v": v}
         else:
             out, new = SSM.ssm_decode(blk.ssm, x, c)
-            h = h + out
+            h = _residual(h, out)
         if cfg.enc_dec is not None:
             x = blk.ln_x(h, cfg.norm_eps)
-            h = h + L.attention_readonly(blk.xattn, x, (c["xk"], c["xv"]))
+            h = _residual(h, L.attention_readonly(blk.xattn, x,
+                                                  (c["xk"], c["xv"])))
         if ff == "mlp":
-            h = h + blk.mlp(blk.ln2(h, cfg.norm_eps))
+            h = _residual(h, blk.mlp(blk.ln2(h, cfg.norm_eps)))
         elif ff == "moe":
             y, _ = MOE.moe_fwd(blk.moe, blk.ln2(h, cfg.norm_eps))
-            h = h + y
+            h = _residual(h, y)
         new_caches.append(new)
     return _logits(cfg, model, h)[:, 0], new_caches

@@ -1,16 +1,23 @@
 """Mixture-of-Experts: top-k router and capacity-bounded dispatch.
 
-The port of the JAX package's ``models/moe.py`` on one device: tokens are
-packed into a per-expert [E, C, d] buffer in GShard's sequential-choice
-order, run through batched expert products, and gathered back, so that
-the same tokens are dropped at the same capacity. The JAX package's
-expert-parallel ``shard_map`` branch needs a mesh, which the port does
-not have yet; ``moe_fwd`` is the single-device path over all experts.
+The port of the JAX package's ``models/moe.py``: tokens are packed into a
+per-expert [E, C, d] buffer in GShard's sequential-choice order, run
+through batched expert products, and gathered back, so that the same
+tokens are dropped at the same capacity.
+
+Expert parallelism is explicit, as in the JAX package: when a mesh with a
+"model" axis that divides the experts is active
+(``repro_torch.sharding.current_mesh``), each rank of the "model" axis
+routes all of its data shard's tokens, packs and runs only its own
+E / m experts, and the partial outputs are summed over "model" (the EP
+all-reduce). The sum is a DTensor ``Partial`` placement, so its gradient
+is the output's, on every rank. Without a mesh the same local function
+runs over all experts.
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -35,6 +42,15 @@ class MoE(nn.Module):
         self.w_down = _dense_init(g, (E, F_, d_model), F_)
 
 
+def moe_axes():
+    return {
+        "router": ("embed", None),
+        "w_gate": ("experts", "embed", None),
+        "w_up": ("experts", "embed", None),
+        "w_down": ("experts", None, "embed"),
+    }
+
+
 def _capacity(tokens: int, cfg: MoEConfig) -> int:
     c = int(math.ceil(tokens / cfg.n_experts * cfg.top_k * CAPACITY_FACTOR))
     c = max(cfg.top_k, ((c + 3) // 4) * 4)
@@ -48,28 +64,34 @@ def _top_k(probs: torch.Tensor, k: int):
     return vals[:, :k], idx[:, :k]
 
 
-def _moe_local(moe: MoE, xf: torch.Tensor
+def _moe_local(w: Dict[str, torch.Tensor], cfg: MoEConfig,
+               xf: torch.Tensor, n_local: int, e0: int
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Route all tokens through all experts. xf: [T, d] → (y [T, d], aux
-    loss scalar)."""
-    cfg = moe.cfg
+    """Route all tokens, compute only experts [e0, e0 + n_local), whose
+    weights are ``w["w_gate"]`` etc. ([n_local, ...]; ``w["router"]`` is
+    the whole router). xf: [T, d] → (partial y [T, d], the aux loss's
+    part over those experts)."""
     T, d = xf.shape
     E, k = cfg.n_experts, cfg.top_k
     dtype, dev = xf.dtype, xf.device
     C = _capacity(T, cfg)
 
-    logits = torch.einsum("td,de->te", xf, moe.router.to(dtype))
+    logits = torch.einsum("td,de->te", xf, w["router"].to(dtype))
     probs = torch.softmax(logits.float(), dim=-1)              # [T, E]
     top_p, top_e = _top_k(probs, k)
     top_p = top_p / top_p.sum(-1, keepdim=True)
 
-    # load-balance aux loss (Switch): E · Σ_e f_e · p̄_e
-    me = probs.mean(0)                                         # [E]
+    # load-balance aux loss (Switch): E · Σ_e f_e · p̄_e, over the local
+    # experts; the sum over the "model" axis restores the whole
+    local = slice(e0, e0 + n_local)
+    me = probs.mean(0)[local]                                  # [n_local]
 
-    # sequential-choice positions within each expert (GShard order)
-    buf = torch.zeros((E, C, d), dtype=dtype, device=dev)
+    # sequential-choice positions within each expert (GShard order); the
+    # tokens that are dropped or not local are written to one extra row,
+    # cut off below, so that every shape is static
+    buf = torch.zeros((n_local + 1, C, d), dtype=dtype, device=dev)
     base = torch.zeros(E, dtype=torch.int64, device=dev)
-    ce = torch.zeros(E, dtype=torch.float32, device=dev)
+    ce = torch.zeros(n_local, dtype=torch.float32, device=dev)
     experts = torch.arange(E, device=dev)
     gathers = []
     for j in range(k):
@@ -78,17 +100,19 @@ def _moe_local(moe: MoE, xf: torch.Tensor
         pos_full = base[None, :] + onehot.cumsum(0) - 1
         base = base + onehot.sum(0)
         pos_j = pos_full.gather(1, e_j[:, None])[:, 0]
-        keep = pos_j < C
-        ce = ce + onehot.sum(0).float() / (T * k)
+        keep = (pos_j < C) & (e_j >= e0) & (e_j < e0 + n_local)
+        ce = ce + onehot.sum(0)[local].float() / (T * k)
         # a kept (expert, position) is taken by one token only
-        buf[e_j[keep], pos_j[keep]] = xf[keep]
-        gathers.append((torch.where(keep, e_j, 0),
-                        torch.where(keep, pos_j, 0), top_p[:, j], keep))
+        el = torch.where(keep, e_j - e0, n_local)
+        pc = torch.where(keep, pos_j, 0)
+        buf = buf.index_put((el, pc), xf)
+        gathers.append((torch.where(keep, el, 0), pc, top_p[:, j], keep))
+    buf = buf[:n_local]
 
-    g = torch.einsum("ecd,edf->ecf", buf, moe.w_gate.to(dtype))
-    u = torch.einsum("ecd,edf->ecf", buf, moe.w_up.to(dtype))
+    g = torch.einsum("ecd,edf->ecf", buf, w["w_gate"].to(dtype))
+    u = torch.einsum("ecd,edf->ecf", buf, w["w_up"].to(dtype))
     ye = torch.einsum("ecf,efd->ecd", F.silu(g) * u,
-                      moe.w_down.to(dtype))                    # [E, C, d]
+                      w["w_down"].to(dtype))                  # [nl, C, d]
 
     y = torch.zeros((T, d), dtype=dtype, device=dev)
     for el, pc, w, keep in gathers:
@@ -100,8 +124,107 @@ def _moe_local(moe: MoE, xf: torch.Tensor
     return y, aux
 
 
+_WEIGHTS = ("router", "w_gate", "w_up", "w_down")
+
+
 def moe_fwd(moe: MoE, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: [B, S, d] → (y, aux_loss), every expert on this device."""
+    """x: [B, S, d] → (y, aux_loss). Expert-parallel over the mesh "model"
+    axis when one is active and divides the experts; tokens stay sharded
+    over the data axes."""
+    from repro_torch import sharding as shd
+
+    cfg = moe.cfg
     B, S, d = x.shape
-    y, aux = _moe_local(moe, x.reshape(B * S, d))
-    return y.reshape(B, S, d), aux
+    E = cfg.n_experts
+    mesh = shd.current_mesh()
+    names = mesh.mesh_dim_names if mesh is not None else ()
+    if "model" not in names or E % mesh.size(names.index("model")):
+        w = {k: getattr(moe, k) for k in _WEIGHTS}
+        if mesh is None:
+            y, aux = _moe_local(w, cfg, x.reshape(B * S, d), E, 0)
+            return y.reshape(B, S, d), aux
+        return _moe_gathered(w, cfg, x, mesh)
+    return _moe_expert_parallel(moe, x, mesh)
+
+
+def _as_dtensor(t: torch.Tensor, mesh):
+    from torch.distributed.tensor import DTensor, Replicate
+    if isinstance(t, DTensor):
+        return t
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def _moe_gathered(w, cfg: MoEConfig, x: torch.Tensor, mesh):
+    """A mesh whose "model" axis does not divide the experts: every rank
+    routes all tokens through all experts (the JAX package leaves this
+    case to its partitioner, over the global tokens), and keeps its
+    shard of y."""
+    from torch.distributed.tensor import DTensor, Replicate
+    B, S, d = x.shape
+    xd = _as_dtensor(x, mesh)
+    full = {k: _as_dtensor(v, mesh).full_tensor() for k, v in w.items()}
+    y, aux = _moe_local(full, cfg, xd.full_tensor().reshape(B * S, d),
+                        cfg.n_experts, 0)
+    rep = [Replicate()] * mesh.ndim
+    y = DTensor.from_local(y.reshape(B, S, d), mesh, rep, run_check=False)
+    aux = DTensor.from_local(aux, mesh, rep, run_check=False)
+    if not isinstance(x, DTensor):
+        return y.to_local(), aux.to_local()
+    return y.redistribute(mesh, xd.placements), aux
+
+
+def _moe_expert_parallel(moe: MoE, x: torch.Tensor, mesh):
+    """Each rank of "model" runs experts [idx·E/m, (idx + 1)·E/m) on its
+    data shard's tokens; y and aux are ``Partial`` over "model" (summed
+    where they are read). The local weights and tokens take ``Partial``
+    gradients over the axes whose ranks read them with different tokens
+    or experts. aux is each data shard's, averaged over the data axes
+    (the JAX package's keeps one shard's)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from repro_torch import sharding as shd
+
+    cfg = moe.cfg
+    B, S, d = x.shape
+    names = list(mesh.mesh_dim_names)
+    mi = names.index("model")
+    n_local = cfg.n_experts // mesh.size(mi)
+    idx = mesh.get_local_rank("model")
+    b_ax = shd.batch_axes_for(mesh, B)
+    b_names = () if b_ax is None else (
+        b_ax if isinstance(b_ax, tuple) else (b_ax,))
+    x_pl = shd.placements_for(mesh, shd.P(b_ax, None, None), 3)
+    xd = _as_dtensor(x, mesh).redistribute(mesh, x_pl)
+    # the gradient of a rank's local copy: partial over "model" (each
+    # rank's experts) and over the data axes that split the tokens
+    partial_over = {mi} | {names.index(a) for a in b_names}
+    x_grad = [Partial() if i == mi else p for i, p in enumerate(x_pl)]
+    xl = xd.to_local(grad_placements=x_grad)
+
+    w = {}
+    for k in _WEIGHTS:
+        spec = shd.P() if k == "router" else shd.P("model")
+        pl = shd.placements_for(mesh, spec, getattr(moe, k).ndim)
+        wd = _as_dtensor(getattr(moe, k), mesh).redistribute(mesh, pl)
+        grad = [Partial() if i in partial_over and not isinstance(p, Shard)
+                else p for i, p in enumerate(pl)]
+        w[k] = wd.to_local(grad_placements=grad)
+
+    Bl = xl.shape[0]
+    y, aux = _moe_local(w, cfg, xl.reshape(Bl * S, d), n_local,
+                        idx * n_local)
+    y_pl = [Partial() if i == mi else p for i, p in enumerate(x_pl)]
+    # the mean over the data shards as a sum of each shard's aux / n (a
+    # Partial("avg") would take the whole gradient on every shard)
+    n_data = 1
+    for a in b_names:
+        n_data *= mesh.size(names.index(a))
+    aux_pl = [Partial() if i == mi or names[i] in b_names else Replicate()
+              for i in range(mesh.ndim)]
+    y = DTensor.from_local(y.reshape(Bl, S, d), mesh, y_pl, run_check=False)
+    aux = DTensor.from_local(aux / n_data, mesh, aux_pl, run_check=False)
+    if not isinstance(x, DTensor):
+        rep = [Replicate()] * mesh.ndim
+        return (y.redistribute(mesh, rep).to_local(),
+                aux.redistribute(mesh, rep).to_local())
+    return y, aux

@@ -19,7 +19,24 @@ from torch import nn
 
 from repro_torch.configs import SSMConfig
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
-from repro_torch.models.layers import _dense_init
+from repro_torch.models.layers import _dense_init, weight
+
+
+def ssm_axes():
+    return {
+        "w_z": ("embed", "ssm_inner"),
+        "w_x": ("embed", "ssm_inner"),
+        "w_B": ("embed", None),
+        "w_C": ("embed", None),
+        "w_dt": ("embed", None),
+        "conv_x": (None, "ssm_inner"),
+        "conv_BC": (None, None),
+        "A_log": (None,),
+        "dt_bias": (None,),
+        "D": (None,),
+        "norm": ("ssm_inner",),
+        "out_proj": ("ssm_inner", "embed"),
+    }
 
 
 class SSM(nn.Module):
@@ -46,7 +63,7 @@ class SSM(nn.Module):
         self.out_proj = _dense_init(g, (din, d_model), din)
 
     def _proj(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        return torch.einsum("bld,dp->blp", x, w.to(x.dtype))
+        return torch.einsum("bld,dp->blp", x, weight(w, x.dtype))
 
     def _in(self, x: torch.Tensor):
         z = self._proj(x, self.w_z)
@@ -67,7 +84,9 @@ def _causal_conv(u: torch.Tensor, conv_w: torch.Tensor) -> torch.Tensor:
     K, L = conv_w.shape[0], u.shape[1]
     out = u * conv_w[K - 1]
     for i in range(1, K):
-        shifted = F.pad(u, (0, 0, i, 0))[:, :L]
+        n = min(i, L)           # u shifted i steps later, zeros before
+        shifted = torch.cat([torch.zeros_like(u[:, :n]), u[:, :L - n]],
+                            dim=1)
         out = out + shifted * conv_w[K - 1 - i]
     return F.silu(out)
 
@@ -77,7 +96,7 @@ def _gated_out(ssm: SSM, y: torch.Tensor, z: torch.Tensor,
     y = y * F.silu(z)
     var = y.float().square().mean(-1, keepdim=True)
     y = (y.float() * torch.rsqrt(var + 1e-6) * ssm.norm).to(dtype)
-    return torch.einsum("bld,dp->blp", y, ssm.out_proj.to(dtype))
+    return torch.einsum("bld,dp->blp", y, weight(ssm.out_proj, dtype))
 
 
 def ssm_fwd(ssm: SSM, x: torch.Tensor, return_state: bool = False):
@@ -92,8 +111,8 @@ def ssm_fwd(ssm: SSM, x: torch.Tensor, return_state: bool = False):
     din = cfg.d_inner(ssm.d_model)
 
     z, xr, BCr, dt_raw = ssm._in(x)
-    xconv = _causal_conv(xr, ssm.conv_x.to(dtype))
-    BC = _causal_conv(BCr, ssm.conv_BC.to(dtype))
+    xconv = _causal_conv(xr, weight(ssm.conv_x, dtype))
+    BC = _causal_conv(BCr, weight(ssm.conv_BC, dtype))
     xs = xconv.reshape(Bb, L, H, P)
     B_ = BC[..., : G * N].reshape(Bb, L, G, N).contiguous()
     C = BC[..., G * N:].reshape(Bb, L, G, N).contiguous()

@@ -1,11 +1,12 @@
-"""Three-term roofline analysis from compiled dry-run artifacts.
+"""Three-term roofline analysis from the dry-run's per-device counters.
 
   compute    = HLO_FLOPs(per-device) / (peak_FLOP/s · f_DVFS)
   memory     = HLO_bytes(per-device) / HBM_bw
   collective = collective_bytes(per-device, ring model) / link_bw
 
-cost_analysis() is already per-partition under SPMD, and the compiled HLO
-shapes are per-device, so no extra division by chip count is needed.
+The dry-run counts each device's local ops and collectives (the JAX
+package reads XLA's per-partition ``cost_analysis`` and compiled HLO), so
+no extra division by chip count is needed.
 MODEL_FLOPS = 6·N·D (dense) / 6·N_active·D (MoE) is the *useful* compute;
 MODEL/HLO ratio flags remat or dispatch waste.
 """
@@ -13,11 +14,10 @@ from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Dict, Optional
+from typing import Dict
 
 from repro_torch import hardware as hw
 from repro_torch.configs import ArchConfig, ShapeSpec
-from repro_torch.utils.hlo import CollectiveStats, parse_collectives
 
 
 @dataclasses.dataclass
@@ -74,18 +74,13 @@ def model_flops(cfg: ArchConfig, shape: ShapeSpec) -> float:
     return 2.0 * n_active * shape.global_batch
 
 
-def raw_costs(compiled, hlo_text: Optional[str] = None):
-    """(flops, bytes, collective_bytes, collective_counts) per device.
-
-    NOTE: XLA cost analysis counts while-loop bodies ONCE; callers must use
-    fully-unrolled modules (dry-run cost variants) or correct for trips.
-    """
-    cost = compiled.cost_analysis()
-    flops = float(cost.get("flops", 0.0))
-    nbytes = float(cost.get("bytes accessed", 0.0))
-    text = hlo_text if hlo_text is not None else compiled.as_text()
-    coll = parse_collectives(text)
-    return flops, nbytes, coll.total_bytes, dict(coll.counts)
+def raw_costs(run):
+    """(flops, bytes, collective_bytes, collective_counts) per device from
+    a dry run's counters (``launch.dryrun.CellRun``: ``flops``, ``bytes``
+    and ``collectives``, a ``utils.hlo.CollectiveStats``)."""
+    coll = run.collectives
+    return (float(run.flops), float(run.bytes), coll.total_bytes,
+            dict(coll.counts))
 
 
 def analyze_costs(flops: float, nbytes: float, coll_bytes: float,
@@ -120,16 +115,13 @@ def analyze_costs(flops: float, nbytes: float, coll_bytes: float,
         out_bytes=out_b, fits_hbm=fits, note=note)
 
 
-def analyze(compiled, cfg: ArchConfig, shape: ShapeSpec, mesh_name: str,
+def analyze(run, cfg: ArchConfig, shape: ShapeSpec, mesh_name: str,
             chips: int, *, dvfs_f: float = 1.0,
-            hlo_text: Optional[str] = None, note: str = "") -> RooflineReport:
-    flops, nbytes, coll_b, counts = raw_costs(compiled, hlo_text)
-    try:
-        ma = compiled.memory_analysis()
-        mem = (ma.argument_size_in_bytes, ma.temp_size_in_bytes,
-               ma.output_size_in_bytes)
-    except Exception:  # pragma: no cover
-        mem = None
+            note: str = "") -> RooflineReport:
+    """The report of a dry run (``launch.dryrun.CellRun``): its costs and
+    its memory (arguments, the peak beyond them, new results)."""
+    flops, nbytes, coll_b, counts = raw_costs(run)
+    mem = (run.arg_bytes, run.temp_bytes, run.out_bytes)
     return analyze_costs(flops, nbytes, coll_b, counts, cfg, shape,
                          mesh_name, chips, dvfs_f=dvfs_f, mem=mem, note=note)
 

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on a card: each against its plain torch version,
-the calibrator on the card against the calibrator on the CPU, and the
+the calibrator on the card against the calibrator on the CPU, the
 language models' serving and training paths on the card against the same
-port on the CPU (the ops' backward formulas, a reduced train step).
+port on the CPU (the ops' backward formulas, a reduced train step), and
+the flash and SSD ops on DTensors of a one-rank NCCL mesh.
 
 These tests need a CUDA card and skip elsewhere; the fixture decides, so
 every process collects the same tests. The file imports no JAX, so it
@@ -797,3 +798,68 @@ def test_reduced_train_step_on_the_card_matches_the_cpu(cuda, arch):
     for (name, a), (_, b) in zip(card.params.named_parameters(),
                                  cpu.params.named_parameters()):
         assert float((a.detach().cpu() - b.detach()).abs().max()) <= tol, name
+
+
+# ---------------------------------------------- a one-rank NCCL mesh
+@pytest.fixture
+def nccl_mesh(cuda):
+    """``make_dev_mesh(1, 1)`` on a one-rank NCCL group, destroyed after
+    the test."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_local_world, make_dev_mesh
+    init_local_world("cuda")
+    try:
+        yield make_dev_mesh(1, 1)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_and_ssd_under_dtensor_match_plain(nccl_mesh, dtype):
+    """The flash and SSD ops on DTensors of a 1×1 CUDA mesh (batch over
+    "data", heads over "model") launch their kernels and equal the plain
+    versions on the same values; the flash gradient through DTensor
+    equals the one without."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+    mesh = nccl_mesh
+    dev = torch.device("cuda", 0)
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def rn(*s):
+        return torch.randn(s, device=dev, generator=g).to(dt)
+    q, k, v = rn(2, 256, 4, 128), rn(2, 256, 2, 128), rn(2, 256, 2, 128)
+    pl = [Shard(0), Shard(2)]
+    qd, kd, vd = (distribute_tensor(t, mesh, pl).requires_grad_(True)
+                  for t in (q, k, v))
+    before = flash_attention_bshd.launches
+    out = flash_attention(qd, kd, vd, causal=True)
+    assert flash_attention_bshd.launches - before == 1
+    assert out.device_mesh.device_type == "cuda"
+    ref = attention_reference(q, k, v, causal=True)
+    err = float((out.full_tensor().float() - ref.float()).abs().max())
+    assert err <= FLASH_TOL[dtype], err
+    do = rn(2, 256, 4, 128)
+    out.backward(distribute_tensor(do, mesh, out.placements))
+    qp, kp, vp = (t.clone().requires_grad_(True) for t in (q, k, v))
+    flash_attention(qp, kp, vp, causal=True).backward(do)
+    for a, b in ((qd, qp), (kd, kp), (vd, vp)):
+        assert torch.equal(a.grad.full_tensor(), b.grad)
+
+    x, dtv = rn(2, 256, 8, 64), torch.rand(2, 256, 8, device=dev,
+                                           generator=g) * 0.1
+    A = -torch.rand(8, device=dev, generator=g)
+    Bm, C = rn(2, 256, 1, 128), rn(2, 256, 1, 128)
+    from torch.distributed.tensor import Replicate
+    before = ssd_scan_blh.launches
+    y = ssd_scan(distribute_tensor(x, mesh, pl),
+                 distribute_tensor(dtv, mesh, pl),
+                 distribute_tensor(A, mesh, [Replicate(), Shard(0)]),
+                 distribute_tensor(Bm, mesh, [Shard(0), Replicate()]),
+                 distribute_tensor(C, mesh, [Shard(0), Replicate()]),
+                 chunk=64)
+    assert ssd_scan_blh.launches - before == 1
+    want = ssd_scan_reference(x, dtv, A, Bm, C)
+    err = float((y.full_tensor().float() - want.float()).abs().max())
+    assert err <= SSD_RTOL[dtype] * float(want.float().abs().max()), err
