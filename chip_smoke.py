@@ -10,8 +10,8 @@ JSON line; any failure exits non-zero:
 
   card    nvidia-smi's name and power limit (also printed raw), torch's name
   build   the kernels' build, timed as set-up, with ptxas's registers,
-          shared memory and spills of every kernel; the window_agg and
-          fp32 flash kernels must not spill
+          shared memory and spills of every kernel; the window_agg, fp32
+          flash and flash backward kernels must not spill
   kernel  every kernel against its plain torch version on the card, at the
           test sweeps' shapes, the main paths' shapes (the calibrator's
           dry-runs among them) and full width
@@ -132,23 +132,32 @@ JSON line; any failure exits non-zero:
           reduced() configs': ``flash_attention_d16``, the CUDA-core
           kernel both flash sources build for it) against its plain
           version, bf16 and fp32, causal and not, GQA, Sq != Skv; the
-          flash and SSD backward formulas (autograd through the ops,
-          whose forward is the kernel) against autograd through the plain
-          versions and against the same formula on the CPU, then timed
-          at the full-width training shapes beside SDPA's backward;
+          flash and SSD backwards (autograd through the ops, whose forward
+          is the kernel; flash's backward in bf16 the kernel
+          ``flash_attention_backward_wgmma``, launched once per bf16 case
+          and never in fp32, the SSD's the formula) against autograd
+          through the plain versions and against the formula on the
+          CPU; the flash backward kernel also against the formula in fp32
+          on the same values (no less accurate than the bf16 formula) and
+          bit-identical on a rerun; then timed at the full-width training
+          shapes (qwen3-1.7b, granite-moe-1b-a400m) beside the formula and
+          SDPA's backward;
           ``train_loop`` at full width (qwen3-1.7b, mamba2-1.3b; batch 2
           — train_4k's global batch of 256 cut to one card —, seq 4,096,
           3 steps, remat "full", bf16): per step ms, tokens/s, peak
           memory, loss and grad norm, all finite, and the kernels'
           launches per step, exactly 2 per path layer (the forward and
-          its recompute: 56 flash_attention_wgmma, 96 ssd_scan_wgmma) and
-          nothing else; the kernels' device ms inside a step
+          its recompute: 56 flash_attention_wgmma, 96 ssd_scan_wgmma), 1
+          per attention layer of the backward kernel (28
+          flash_attention_backward_wgmma) and nothing else; the kernels'
+          device ms inside a step
           (``chip_smoke.py --trace-train ARCH``, depth 2, a child
           process); depth cut to 2 at full width: one fp32 train step on
           the card against the CPU's (loss and grad norm within rtol
           1e-4, parameters within 2·lr + 1e-6); the reduced defaults on
           the card (head dim 16): train_loop smollm-135m for 20 steps
-          (the loss drops) and 3 fp32 steps, serve_demo,
+          (the loss drops; the backward kernel at d 16 once a layer a
+          step) and 3 fp32 steps, serve_demo,
           measure_step_time of schedule_run's archs, ``schedule_run
           --jobs 3 --steps 2`` (its plan line equal to the CPU's); the
           path's kernels by CUDA events for the ``kernels`` line
@@ -160,8 +169,9 @@ JSON line; any failure exits non-zero:
           (1, its MoE layers on the expert-parallel branch), each without
           a mesh and then on the mesh (DTensor parameters, the batch
           sharded by the loader): exactly 56 flash_attention_wgmma / 96
-          ssd_scan_wgmma / 48 flash_attention_wgmma launches a step and
-          nothing else, losses within DIST_LOSS_RTOL and grad norms within
+          ssd_scan_wgmma / 48 flash_attention_wgmma launches a step (and
+          28 / 0 / 24 flash_attention_backward_wgmma) and nothing else,
+          losses within DIST_LOSS_RTOL and grad norms within
           DIST_GNORM_RTOL of the mesh-less steps, ms per step, peak memory
           and DTensor's host overhead per step; then the port's dry-run
           (``launch/dryrun.py``) in grandchild processes (``--dryrun``,
@@ -498,8 +508,8 @@ def zeroed_counters() -> dict:
     """The launch counters of the calibrator's kernels by name, each set
     to 0 (``window_agg``'s counts by load width too)."""
     from repro_torch.kernels.flash_attention.kernel import (
-        flash_attention_3xtf32, flash_attention_bshd, flash_attention_d16,
-        flash_attention_wgmma)
+        flash_attention_3xtf32, flash_attention_backward_wgmma,
+        flash_attention_bshd, flash_attention_d16, flash_attention_wgmma)
     from repro_torch.kernels.ssd_scan.kernel import (ssd_scan_blh, ssd_scan_fma,
                                                      ssd_scan_wgmma)
     from repro_torch.kernels.window_agg.kernel import segment_reduce
@@ -507,7 +517,8 @@ def zeroed_counters() -> dict:
                 flash_attention_bshd, "flash_attention_wgmma":
                 flash_attention_wgmma, "flash_attention_3xtf32":
                 flash_attention_3xtf32, "flash_attention_d16":
-                flash_attention_d16, "ssd_scan": ssd_scan_blh,
+                flash_attention_d16, "flash_attention_backward_wgmma":
+                flash_attention_backward_wgmma, "ssd_scan": ssd_scan_blh,
                 "ssd_scan_wgmma": ssd_scan_wgmma, "ssd_scan_fma": ssd_scan_fma}
     for c in counters.values():
         c.launches = 0
@@ -539,9 +550,11 @@ def calibration_path() -> dict:
     require(segment_reduce.vector_launches == 0,
             f"the dry-run's [768, 1] took 16-byte loads: {launches}")
 
-    # the calibrator's flash dry-run has head dim 64: d 16 is not its path
+    # the calibrator's flash dry-run has head dim 64 and runs no backward:
+    # d 16 and the backward kernel are not its path
     require(all(n > 0 for k, n in launches.items()
-                if k != "flash_attention_d16"),
+                if k not in ("flash_attention_d16",
+                             "flash_attention_backward_wgmma")),
             f"a kernel of the calibration path never launched: {launches}")
     require(cal.device.type == "cuda", f"calibrator on {cal.device}")
     require(len(cal.log) == 3
@@ -1623,16 +1636,24 @@ FLASH_D16_CASES = ((8, 128, 128, 4, 2, 16, True),
                    (2, 200, 200, 4, 1, 16, True),      # ragged, MQA
                    (1, 96, 160, 4, 2, 16, False),      # Sq < Skv
                    (1, 160, 96, 2, 2, 16, True))       # Sq > Skv
-# the backward checks' shapes: (B, Sq, Skv, H, KV, d, causal) and (B, L,
-# H, P, G, N, chunk); the backward's tolerance as a fraction of each
-# gradient's max|g| (bf16: the two sides round their products apart)
-# (the last flash case spans three query blocks of the backward's
-# BLOCK_Q, each adding into dK and dV under a moving causal key end)
-BWD_FLASH_CASES = ((2, 192, 192, 4, 2, 16, True), (1, 128, 256, 4, 2, 16,
-                                                    False),
-                   (1, 256, 256, 4, 2, 128, True), (1, 96, 224, 8, 2, 128,
-                                                    True),
-                   (1, 1100, 1300, 4, 2, 128, True))
+# the backward checks' shapes: (B, Sq, Skv, H, KV, d, causal, q's scale)
+# and (B, L, H, P, G, N, chunk); the backward's tolerance as a fraction of
+# each gradient's max|g| (bf16: the two sides round their products apart)
+BWD_FLASH_CASES = ((2, 192, 192, 4, 2, 16, True, 1.0),
+                   (1, 128, 256, 4, 2, 16, False, 1.0),
+                   (1, 256, 256, 4, 2, 128, True, 1.0),
+                   (1, 96, 224, 8, 2, 128, True, 1.0),
+                   # three query blocks of the formula's BLOCK_Q, each
+                   # adding into dK and dV under a moving causal key end
+                   (1, 1100, 1300, 4, 2, 128, True, 1.0),
+                   (1, 300, 300, 4, 2, 32, True, 1.0),
+                   (2, 256, 256, 6, 2, 64, True, 1.0),       # rep 3
+                   (1, 200, 200, 10, 2, 64, True, 1.0),      # rep 5
+                   # whisper-medium's cross-attention: 448 decoder
+                   # positions over the 1,500 of the encoder
+                   (1, 448, 1500, 16, 16, 64, False, 1.0),
+                   (1, 160, 96, 4, 2, 64, True, 1.0),     # 64 rows see no key
+                   (1, 512, 512, 4, 2, 128, True, 1e-3))  # near-uniform rows
 BWD_SSD_CASES = ((2, 256, 4, 64, 1, 128, 64), (1, 200, 4, 16, 2, 32, 64))
 BWD_RTOL = {"float32": 1e-4, "bfloat16": 5e-2}
 BWD_SSD_RTOL = {"float32": 1e-4, "bfloat16": 1e-1}
@@ -1669,8 +1690,13 @@ def trace_train(arch) -> None:
 
     dev = torch.device("cuda", 0)
     cfg = dataclasses.replace(get_arch(arch), n_layers=TRAIN_PLAIN_LAYERS)
-    names = (("flash_forward_sm90",) if cfg.ssm is None else
-             ("chunk_state_wgmma", "state_pass", "chunk_output_wgmma"))
+    # the kernels and their launches per layer in a step: remat "full"
+    # runs the forward twice (forward and recompute), the backward once
+    launches = ({"flash_forward_sm90": 2, "flash_bwd_dq": 1,
+                 "flash_bwd_dkdv": 1} if cfg.ssm is None else
+                {"chunk_state_wgmma": 2, "state_pass": 2,
+                 "chunk_output_wgmma": 2})
+    names = tuple(launches)
     state = init_train_state(M.init_params(
         cfg, torch.Generator(device=dev).manual_seed(SEED)))
     step = make_train_step(cfg, TrainHParams())
@@ -1684,46 +1710,105 @@ def trace_train(arch) -> None:
     def inside(seen):
         return {k: v for k, v in seen.items() if k.split("<")[0] in names}
 
-    def accept(seen):      # remat "full": the forward and its recompute
+    def accept(seen):
         got = inside(seen)
         return len(got) == len(names) and all(
-            v["launches"] == 2 * TRAIN_PLAIN_LAYERS for v in got.values())
+            v["launches"] == launches[k.split("<")[0]] * TRAIN_PLAIN_LAYERS
+            for k, v in got.items())
     one()
     torch.cuda.synchronize()
     print(json.dumps(inside(per_call_device_ms(one, accept))), flush=True)
 
 
+def _bwd_vs_fp32_formula(what, got, inputs, causal) -> dict:
+    """The bf16 backward kernel's gradients ``got`` on bf16 ``inputs`` (q,
+    k, v, dO) held, each, to the formula run in fp32 on the same values:
+    within BWD_RTOL·max|g| of the bf16 formula (its plain version), and
+    within 2 × the bf16 formula's own error against the fp32 one +
+    1e-3·max|g|, no less accurate than its plain version. Returns
+    {dq, dk, dv: the three errors, each / max|g| of the fp32 formula}."""
+    from repro_torch.kernels.flash_attention.backward import (
+        flash_attention_backward)
+
+    plain = flash_attention_backward(*inputs, causal)
+    exact = flash_attention_backward(*(t.float() for t in inputs), causal)
+    errs = {}
+    for name, g, f, e in zip(("dq", "dk", "dv"), got, plain, exact):
+        g, f = g.float(), f.float()
+        mx = float(e.abs().max())
+        e_p = float((g - f).abs().max())
+        e_k = float((g - e).abs().max())
+        e_f = float((f - e).abs().max())
+        tol = BWD_RTOL["bfloat16"] * float(f.abs().max())
+        require(e_p <= tol, f"{what} {name}: kernel {e_p} from the bf16 "
+                f"formula > {tol}")
+        require(e_k <= 2 * e_f + 1e-3 * mx, f"{what} {name}: kernel {e_k} "
+                f"against the fp32 formula, > 2 × the bf16 formula's {e_f} "
+                f"+ 1e-3·{mx}")
+        errs[name] = {"kernel_vs_bf16_formula": e_p / mx,
+                      "kernel_vs_fp32_formula": e_k / mx,
+                      "bf16_formula_vs_fp32_formula": e_f / mx,
+                      "max_abs_g": mx, "max_abs_err": e_p}
+    return errs
+
+
 def backward_checks(dev, gen) -> None:
-    """(b) of ``train_path``, the checks: the flash and SSD backward
-    formulas on the card (autograd through the ops, whose forward is the
-    kernel) against autograd through the plain versions and against the
-    same formula on the CPU, at BWD_FLASH_CASES and BWD_SSD_CASES, bf16
-    and fp32."""
+    """(b) of ``train_path``, the checks: the flash and SSD backwards on
+    the card (autograd through the ops, whose forward is the kernel)
+    against autograd through the plain versions and against the formula
+    on the CPU, at BWD_FLASH_CASES and BWD_SSD_CASES, bf16 and fp32. The
+    flash backward in bf16 is the kernel, launched exactly once a case
+    (never in fp32); each of its gradients, against the formula run in
+    fp32 on the same values, is within 2 × the bf16 formula's own error
+    against it + 1e-3·max|g|: no less accurate than its plain version. A
+    rerun is bit-identical, and rows that see no key get dq = 0."""
     import torch
     from repro_torch.kernels.flash_attention import (attention_reference,
                                                      flash_attention)
     from repro_torch.kernels.flash_attention.backward import (
         flash_attention_backward)
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_backward_wgmma)
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_reference
     from repro_torch.kernels.ssd_scan.backward import ssd_scan_backward
 
+    def grads(q, k, v, do, causal):
+        ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        flash_attention(*ins, causal=causal).backward(do)
+        return [t.grad for t in ins]
+
     for case in BWD_FLASH_CASES:
+        B, Sq, Skv, H, KV, d, causal, q_scale = case
         for dt in ("float32", "bfloat16"):
-            q, k, v = flash_inputs(dev, gen, *case[:6], dt)
+            name = f"flash backward {list(case)} {dt}"
+            q, k, v = flash_inputs(dev, gen, B, Sq, Skv, H, KV, d, dt)
+            q = (q.float() * q_scale).to(q.dtype)
             do = torch.randn(q.shape, device=dev, generator=gen).to(q.dtype)
-            ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
-            flash_attention(*ins, causal=case[6]).backward(do)
-            got = [t.grad for t in ins]
+            before = flash_attention_backward_wgmma.launches
+            got = grads(q, k, v, do, causal)
+            launched = flash_attention_backward_wgmma.launches - before
+            require(launched == int(dt == "bfloat16"), f"{name}: "
+                    f"flash_attention_backward_wgmma launches {launched}")
+            again = grads(q, k, v, do, causal)
+            torch.cuda.synchronize()
+            require(all(torch.equal(bits(a), bits(b))
+                        for a, b in zip(got, again)), f"{name}: rerun differs")
+            if causal and Sq > Skv:
+                require(not got[0][:, :Sq - Skv].any(),
+                        f"{name}: dq of rows that see no key is not 0")
             ref_in = [t.clone().requires_grad_(True) for t in (q, k, v)]
-            attention_reference(*ref_in, causal=case[6]).backward(do)
+            attention_reference(*ref_in, causal=causal).backward(do)
             e_plain = _grads_close(got, [t.grad for t in ref_in],
-                                   BWD_RTOL[dt], f"flash backward {case} {dt}")
+                                   BWD_RTOL[dt], name)
             cpu = flash_attention_backward(*(t.cpu() for t in (q, k, v, do)),
-                                           case[6])
-            e_cpu = _grads_close(got, cpu, BWD_RTOL[dt],
-                                 f"flash backward {case} {dt} vs CPU")
-            emit("train", case=f"flash backward {list(case)} {dt}",
-                 vs_plain_autograd=e_plain, vs_cpu_formula=e_cpu,
+                                           causal)
+            e_cpu = _grads_close(got, cpu, BWD_RTOL[dt], f"{name} vs CPU")
+            fields = {}
+            if dt == "bfloat16":
+                fields["vs_fp32_formula"] = _bwd_vs_fp32_formula(
+                    name, got, (q, k, v, do), causal)
+            emit("train", case=name, backward_kernel_launches=launched,
+                 vs_plain_autograd=e_plain, vs_cpu_formula=e_cpu, **fields,
                  tolerance=f"{BWD_RTOL[dt]} * max|g| per gradient")
     for case in BWD_SSD_CASES:
         B, L, H, P, G, N, chunk = case
@@ -1824,24 +1909,89 @@ def card_vs_cpu_steps(dev) -> None:
         torch.cuda.empty_cache()
 
 
+# the flash backward's full-width training shapes, timed in the train phase
+BWD_TIMED_ARCHS = ("qwen3-1.7b", "granite-moe-1b-a400m")
+# the JAX package has no backward kernel (no TPU kernel to name): its
+# models train by XLA's autodiff of chunked_attention, whose gradient the
+# backward kernel computes, so its rows name that function
+FLASH_BWD_REPLACES = "src/repro/models/layers.py:132"
+
+
+def time_flash_backward(dev, gen, cfg, smi0) -> dict:
+    """The flash backward kernel at ``cfg``'s full-width training shape
+    (TRAIN_FULL's batch and seq, causal, bf16), first held to the formula
+    in bf16 and in fp32 on the same values (``_bwd_vs_fp32_formula``),
+    then timed: the kernel as the median of 5 batches of 20 launches after
+    5 warm-ups with their spread, the formula (its plain version) and
+    SDPA's backward by CUDA events, beside the bound (q, k, v and dO read
+    once, dq, dk, dv written once; 2.5 times the forward's operations);
+    ``max_abs_err`` is the kernel's largest difference from the bf16
+    formula. Emits a ``times`` line; returns the timings."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.backward import (
+        flash_attention_backward)
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_backward_wgmma)
+    from repro_torch.kernels.flash_attention.ops import flash_attention_flops
+
+    B, S = TRAIN_FULL["batch"], TRAIN_FULL["seq"]
+    q, k, v = flash_inputs(dev, gen, B, S, S, cfg.n_heads, cfg.n_kv_heads,
+                           cfg.head_dim, "bfloat16")
+    do = torch.randn(q.shape, device=dev, generator=gen).to(q.dtype)
+    errs = _bwd_vs_fp32_formula(f"flash backward {cfg.name} train",
+                                flash_attention_backward_wgmma(
+                                    q, k, v, do, True), (q, k, v, do), True)
+    torch.cuda.empty_cache()
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                            enable_gqa=True)
+    do_t = do.transpose(1, 2)
+    bwd_bytes = 2 * sum(t.numel() * t.element_size() for t in (q, k, v)) \
+        + do.numel() * do.element_size()
+    t = {**batches(lambda: flash_attention_backward_wgmma(q, k, v, do, True),
+                   "ms"),
+         "plain_ms": cuda_ms(lambda: flash_attention_backward(
+             q, k, v, do, True), 5, 1),
+         **batches(lambda: torch.autograd.grad(
+             o_sdpa, (qt, kt, vt), do_t, retain_graph=True), "library_ms"),
+         "library": "scaled_dot_product_attention(is_causal=True, "
+                    "enable_gqa=True) backward",
+         **bound(bwd_bytes, 5 * flash_attention_flops(
+             q.shape, k.shape, True) // 2, "bfloat16"),
+         "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+         "vs_formula": errs}
+    emit("times", case=f"flash backward {cfg.name} train",
+         shape=[[B, S, cfg.n_heads, cfg.head_dim],
+                [B, S, cfg.n_kv_heads, cfg.head_dim]], dtype="bfloat16",
+         kernel="flash_attention_backward_wgmma", nvidia_smi=smi0, **t)
+    del q, k, v, do, qt, kt, vt, o_sdpa, do_t
+    torch.cuda.empty_cache()
+    return t
+
+
 def train_path(dev, gen, smi0) -> list:
     """The LM training path on the card:
       (a) flash at head dim 16 (``flash_attention_d16``, the CUDA-core
           kernel both flash sources build for it) against its plain
           version, bf16 and fp32, causal and not, GQA, Sq != Skv;
-      (b) the flash and SSD backward formulas on the card (autograd
-          through the ops, whose forward is the kernel) against autograd
-          through the plain versions, and against the same formula on the
-          CPU, bf16 and fp32, flash at d 16 and 128; then timed at the
-          full-width training shapes beside SDPA's backward (flash) by
-          CUDA events;
+      (b) the flash and SSD backwards on the card (autograd through the
+          ops, whose forward is the kernel; flash's backward in bf16 the
+          kernel, in fp32 and the SSD's the formula) against autograd
+          through the plain versions, and against the formula on the CPU,
+          bf16 and fp32, flash at d 16 to 128 (``backward_checks``); then
+          the flash backward kernel timed at the full-width training
+          shapes beside its formula and SDPA's backward, the SSD's formula
+          alone, by CUDA events;
       (c) ``train_loop`` at full width (qwen3-1.7b, mamba2-1.3b; batch 2,
           seq 4,096, 3 steps, TrainHParams' defaults: remat "full", bf16):
           per step ms (host clock after a device sync), tokens/s, peak
           memory, loss and grad norm, all finite; the kernels' launches
-          per step, exactly 2 per path layer (forward and recompute) and
-          nothing else; the kernels' device ms inside a step (a traced
-          step at depth TRAIN_PLAIN_LAYERS in a child process);
+          per step, exactly 2 per path layer (forward and recompute), the
+          flash backward kernel 1 per attention layer, and nothing else;
+          the kernels' device ms inside a step (a traced step at depth
+          TRAIN_PLAIN_LAYERS in a child process);
       (d) depth cut to TRAIN_PLAIN_LAYERS at full width: one fp32 train
           step on the card against the same weights and batch on the CPU
           (the plain versions): loss and grad norm within rtol 1e-4,
@@ -1853,19 +2003,17 @@ def train_path(dev, gen, smi0) -> list:
           ``serve_demo``, ``measure_step_time`` for schedule_run's three
           archs, ``schedule_run --jobs 3 --steps 2`` (its plan line equal
           to the CPU's).
-    Returns the ``kernels`` rows of the path."""
+    Returns the ``kernels`` rows of the path and the flash backward's
+    timings by arch (``time_flash_backward``)."""
     import contextlib
     import io
 
     import numpy as np
     import torch
-    import torch.nn.functional as F
     from repro_torch.configs import get_arch
     from repro_torch.core.emulator import measure_step_time
     from repro_torch.kernels.flash_attention import (attention_reference,
                                                      flash_attention)
-    from repro_torch.kernels.flash_attention.backward import (
-        flash_attention_backward)
     from repro_torch.kernels.flash_attention.kernel import flash_attention_d16
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_reference
     from repro_torch.kernels.ssd_scan.backward import ssd_scan_backward
@@ -1904,40 +2052,15 @@ def train_path(dev, gen, smi0) -> list:
                  tolerance=FLASH_TOL[dt])
             d16_err[dt] = max(d16_err.get(dt, 0.0), err)
 
-    # (b) the backward formulas on the card
+    # (b) the backwards on the card
     backward_checks(dev, gen)
 
-    # the backward formulas timed at the full-width training shapes (bf16)
+    # the backward kernel timed at the full-width training shapes (bf16)
+    # beside its plain version, the formula, and SDPA's backward
     B, S = TRAIN_FULL["batch"], TRAIN_FULL["seq"]
-    qwen, mamba = get_arch("qwen3-1.7b"), get_arch("mamba2-1.3b")
-    q, k, v = flash_inputs(dev, gen, B, S, S, qwen.n_heads, qwen.n_kv_heads,
-                           qwen.head_dim, "bfloat16")
-    do = torch.randn(q.shape, device=dev, generator=gen).to(q.dtype)
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
-                  for t in (q, k, v))
-    o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                            enable_gqa=True)
-    do_t = do.transpose(1, 2)
-    from repro_torch.kernels.flash_attention.ops import flash_attention_flops
-    # the bound: q, k, v and dO read once, dQ, dK and dV written once;
-    # 2.5 times the forward's products (S recomputed, dP, dV, dQ, dK)
-    bwd_bytes = 2 * sum(t.numel() * t.element_size() for t in (q, k, v)) \
-        + do.numel() * do.element_size()
-    flash_bwd = {**bound(bwd_bytes, 5 * flash_attention_flops(
-                     q.shape, k.shape, True) // 2, "bfloat16"),
-                 "ms": cuda_ms(lambda: flash_attention_backward(
-                     q, k, v, do, True), 5, 1),
-                 "library_ms": cuda_ms(lambda: torch.autograd.grad(
-                     o_sdpa, (qt, kt, vt), do_t, retain_graph=True), 20, 3),
-                 "library": "scaled_dot_product_attention(is_causal=True, "
-                            "enable_gqa=True) backward",
-                 "forward_kernel_ms": cuda_ms(lambda: flash_attention(
-                     q, k, v, causal=True), 20, 3)}
-    emit("times", case="flash backward qwen3-1.7b train",
-         shape=[[B, S, qwen.n_heads, qwen.head_dim],
-                [B, S, qwen.n_kv_heads, qwen.head_dim]], dtype="bfloat16",
-         nvidia_smi=smi0, **flash_bwd)
-    del q, k, v, do, qt, kt, vt, o_sdpa, do_t
+    mamba = get_arch("mamba2-1.3b")
+    bwd_times = {arch: time_flash_backward(dev, gen, get_arch(arch), smi0)
+                 for arch in BWD_TIMED_ARCHS}
     s = mamba.ssm
     args = ssd_inputs(dev, gen, B, S, s.n_heads(mamba.d_model), s.head_dim,
                       s.n_groups, s.d_state, "bfloat16")
@@ -1997,6 +2120,8 @@ def train_path(dev, gen, smi0) -> list:
         want = {k: 0 for k in counters}
         want[kernel] = want["flash_attention" if attn else "ssd_scan"] \
             = 2 * n_path
+        if attn:
+            want["flash_attention_backward_wgmma"] = n_path
         for rec in steps:
             emit("train", case="full_width_step", arch=arch, **rec,
                  nvidia_smi=smi0)
@@ -2009,7 +2134,9 @@ def train_path(dev, gen, smi0) -> list:
         per_step[arch] = (kernel, 2 * n_path, steps)
         emit("train", case="full_width", arch=arch, **TRAIN_FULL,
              remat="full", compute_dtype="bfloat16",
-             launches_per_step={kernel: 2 * n_path},
+             launches_per_step={k: n for k, n in want.items()
+                                if n and k not in ("flash_attention",
+                                                   "ssd_scan")},
              peak_memory=torch.cuda.max_memory_allocated(dev),
              printed=printed.getvalue().strip(), nvidia_smi=smi0)
         del state
@@ -2040,10 +2167,13 @@ def train_path(dev, gen, smi0) -> list:
         _, losses = train_loop("smollm-135m", steps=TRAIN_DEFAULT_STEPS,
                                log_every=10**9)
     d16_launches = counters["flash_attention_d16"].launches
+    d16_bwd_launches = counters["flash_attention_backward_wgmma"].launches
     n_layers = get_arch("smollm-135m").reduced().n_layers
-    require(d16_launches == TRAIN_DEFAULT_STEPS * n_layers,
+    require(d16_launches == TRAIN_DEFAULT_STEPS * n_layers
+            and d16_bwd_launches == TRAIN_DEFAULT_STEPS * n_layers,
             f"reduced train_loop: flash_attention_d16 launches "
-            f"{d16_launches}")
+            f"{d16_launches}, flash_attention_backward_wgmma "
+            f"{d16_bwd_launches}")
     require(all(math.isfinite(x) for x in losses)
             and np.mean(losses[-5:]) < np.mean(losses[:5]),
             f"reduced train_loop: losses {losses}")
@@ -2056,6 +2186,7 @@ def train_path(dev, gen, smi0) -> list:
                             remat="none", compute_dtype=torch.float32))
     d16_launches32 = counters["flash_attention_d16"].launches
     require(d16_launches32 == 3 * n_layers
+            and counters["flash_attention_backward_wgmma"].launches == 0
             and all(math.isfinite(x) for x in losses32),
             f"reduced fp32 train_loop: launches {d16_launches32}, losses "
             f"{losses32}")
@@ -2075,6 +2206,7 @@ def train_path(dev, gen, smi0) -> list:
                 for ln in lines) == 3, f"schedule_run: {lines}")
     emit("train", case="reduced_defaults", train_loop_losses=losses,
          flash_attention_d16_launches=d16_launches,
+         flash_attention_backward_wgmma_d16_launches=d16_bwd_launches,
          fp32_train_loop_losses=losses32,
          fp32_flash_attention_d16_launches=d16_launches32,
          serve_demo_ms={"prefill": rep.prefill_s * 1e3,
@@ -2132,7 +2264,14 @@ def train_path(dev, gen, smi0) -> list:
              dtype="bfloat16", launches=per * len(steps), nvidia_smi=smi0,
              **t)
         rows.append((*row, per * len(steps), err, t))
-    return rows
+        if cfg.ssm is None:
+            n_bwd = sum(r["launches"]["flash_attention_backward_wgmma"]
+                        for r in steps)
+            tb = bwd_times[arch]
+            rows.append((f"flash_attention.flash_attention_backward_wgmma "
+                         f"{arch} train step", "flash_attention_bwd_sm90",
+                         FLASH_BWD_REPLACES, n_bwd, tb["max_abs_err"], tb))
+    return rows, bwd_times
 
 
 # ---- the distribution path: a one-rank NCCL mesh on the card, and the
@@ -2272,6 +2411,8 @@ def dist_child() -> None:
             want = {k: 0 for k in zeroed_counters()}
             want[kernel] = want["flash_attention" if attn else "ssd_scan"] \
                 = 2 * n_path
+            if attn:
+                want["flash_attention_backward_wgmma"] = n_path
             n_moe = sum(k.endswith("moe") for k in cfg.layer_kinds())
             runs = {}
             for name, m in (("meshless", None), ("mesh", mesh)):
@@ -2334,7 +2475,9 @@ def dist_child() -> None:
             emit("dist", case="train_loop_1x1_mesh", arch=arch,
                  **TRAIN_FULL | {"steps": steps}, remat="full",
                  compute_dtype="bfloat16",
-                 launches_per_step={kernel: 2 * n_path},
+                 launches_per_step={k: n for k, n in want.items()
+                                    if n and k not in ("flash_attention",
+                                                       "ssd_scan")},
                  meshless=runs["meshless"], mesh=runs["mesh"],
                  rel_diffs=diffs, dtensor_host_overhead_ms=overhead,
                  tolerance={"loss_rel": DIST_LOSS_RTOL,
@@ -2347,6 +2490,9 @@ def dist_child() -> None:
             summary["archs"][arch] = {
                 "kernel": kernel, "launches": sum(
                     r["launches"][kernel] for r in runs["mesh"]["steps"]),
+                "backward_launches": sum(
+                    r["launches"]["flash_attention_backward_wgmma"]
+                    for r in runs["mesh"]["steps"]),
                 "peak_memory": runs["meshless"]["peak_memory"],
                 "mesh_peak_memory": runs["mesh"]["peak_memory"]}
         dist.destroy_process_group()
@@ -2380,12 +2526,14 @@ def dist_child() -> None:
     print(json.dumps(summary), flush=True)
 
 
-def dist_kernel_rows(dev, gen, smi0, summary, train_rows) -> list:
+def dist_kernel_rows(dev, gen, smi0, summary, train_rows,
+                     bwd_times) -> list:
     """The ``kernels`` rows of the dist phase: its launches on the mesh
     path; qwen3-1.7b's flash and mamba2-1.3b's SSD at the training shape
     keep the train phase's measurements of this run (the same kernels at
     the same shapes), granite-moe-1b-a400m's flash is checked against its
-    plain version and timed at its own."""
+    plain version and timed at its own; the flash backward kernel's rows
+    take the train phase's timings at each arch's shape (``bwd_times``)."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels.flash_attention import (attention_reference,
                                                      flash_attention)
@@ -2420,6 +2568,12 @@ def dist_kernel_rows(dev, gen, smi0, summary, train_rows) -> list:
             replaces = "src/repro/kernels/flash_attention/kernel.py:87"
         rows.append((f"{prefix} on a 1x1 NCCL mesh", src, replaces,
                      rec["launches"], err, t))
+        if rec["backward_launches"]:
+            tb = bwd_times[arch]
+            rows.append((f"flash_attention.flash_attention_backward_wgmma "
+                         f"{arch} train step on a 1x1 NCCL mesh",
+                         "flash_attention_bwd_sm90", FLASH_BWD_REPLACES,
+                         rec["backward_launches"], tb["max_abs_err"], tb))
     return rows
 
 
@@ -2651,7 +2805,8 @@ def main() -> None:
     emit("build", seconds=time.perf_counter() - t0,
          libraries=[str(p.relative_to(ROOT)) for p in libs.values()],
          ptxas=ptxas)
-    spills = {k: u for n in ("window_agg", "flash_attention_sm90_f32")
+    spills = {k: u for n in ("window_agg", "flash_attention_sm90_f32",
+                             "flash_attention_bwd_sm90")
               for k, u in ptxas[n].items()
               if u["spill_stores"] or u["spill_loads"]}
     require(not spills, f"kernels that spill registers: {spills}")
@@ -2943,8 +3098,9 @@ def main() -> None:
     region_path(dev, smi0)
     serve_path()
     lm_rows = lm_path(dev, gen, smi0)
-    train_rows = train_path(dev, gen, smi0)
-    dist_rows = dist_kernel_rows(dev, gen, smi0, dist_path(), train_rows)
+    train_rows, bwd_times = train_path(dev, gen, smi0)
+    dist_rows = dist_kernel_rows(dev, gen, smi0, dist_path(), train_rows,
+                                 bwd_times)
     paper4()
 
     # ---- times ---------------------------------------------------------------------

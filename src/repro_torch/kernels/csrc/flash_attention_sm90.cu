@@ -91,28 +91,6 @@ struct Cfg {
   static constexpr int kSmem = 1024 + kQBytes + 2 * kStages * kKVBytes + 64;
 };
 
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&d)[D / 2],
-                                         const uint32_t (&a)[4], uint64_t b);
-template <>
-__device__ __forceinline__ void wgmma_pv<32>(float (&d)[16],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b) {
-  wgmma_rs_m64n32_tb(d, a, b);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<64>(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b) {
-  wgmma_rs_m64n64_tb(d, a, b);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<128>(float (&d)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t b) {
-  wgmma_rs_m64n128_tb(d, a, b);
-}
-
 // grid (B * H, ceil(Sq / kBM)), block kThreads
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -281,9 +259,9 @@ flash_forward_sm90(const __grid_constant__ CUtensorMap map_q,
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kBN / 16; ++kk)
-          wgmma_pv<D>(acc, pa[kk],
-                      make_desc(vb + kk * 16 * C::kSwBytes, C::kChunkKV,
-                                8 * C::kSwBytes, C::kLayout));
+          wgmma_rs_tb<D>(acc, pa[kk],
+                         make_desc(vb + kk * 16 * C::kSwBytes, C::kChunkKV,
+                                   8 * C::kSwBytes, C::kLayout));
         wgmma_commit();
         wgmma_wait_all();
         fence_operands(acc);

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels
-// (flash_attention_sm90.cu, flash_attention_sm90_f32.cu, ssd_scan.cu):
+// (flash_attention_sm90.cu, flash_attention_sm90_f32.cu,
+// flash_attention_bwd_sm90.cu, ssd_scan.cu):
 // shared-memory matrix descriptors for 128- and 64-byte swizzled tiles,
 // the wgmma fences and wrappers (bf16 and tf32), the tf32 split.
 //
@@ -157,6 +158,30 @@ __device__ __forceinline__ void wgmma_rs_m64n128_tb(float (&d)[64],
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[N / 2] += A (64 x 16, bf16 registers) B (16 x N, MN-major), by N
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b);
+template <>
+__device__ __forceinline__ void wgmma_rs_tb<32>(float (&d)[16],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b) {
+  wgmma_rs_m64n32_tb(d, a, b);
+}
+template <>
+__device__ __forceinline__ void wgmma_rs_tb<64>(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b) {
+  wgmma_rs_m64n64_tb(d, a, b);
+}
+template <>
+__device__ __forceinline__ void wgmma_rs_tb<128>(float (&d)[64],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t b) {
+  wgmma_rs_m64n128_tb(d, a, b);
 }
 
 // tf32 (fp32 operands whose low 13 mantissa bits the tensor cores ignore),

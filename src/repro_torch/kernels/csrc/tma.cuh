@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA-fed kernels
-// (flash_attention_sm90.cu, flash_attention_sm90_f32.cu): mbarriers, the
-// tiled TMA loads, the proxy fence, and cuTensorMapEncodeTiled reached at
+// (flash_attention_sm90.cu, flash_attention_sm90_f32.cu,
+// flash_attention_bwd_sm90.cu): mbarriers, the tiled TMA loads, the plain
+// bulk copy, the proxy fence, and cuTensorMapEncodeTiled reached at
 // run time through the runtime's entry-point query, so that no library
 // links libcuda.
 #pragma once
@@ -61,6 +62,28 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2, int c3,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// `bytes` contiguous bytes from global memory (16-byte aligned, a multiple
+// of 16) into shared memory, completing on `bar` like the tiled loads
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 

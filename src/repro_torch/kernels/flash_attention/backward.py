@@ -3,11 +3,23 @@ with autograd.
 
 The JAX package has no backward kernel: its language models train by
 XLA's autodiff of the plain ``chunked_attention``. The port's forward is
-the hand-written kernel on the card (the plain version on the CPU); its
-backward is this explicit formula in torch ops, one code path on both
-devices. It never calls the plain version or a library attention.
+the hand-written kernel on the card (the plain version on the CPU). Its
+backward is the custom op ``repro_torch::flash_attention_backward``, with
+two routes by device and type:
 
-Per block of BLOCK_Q query rows (memory stays at [B, H, BLOCK_Q, Skv]):
+* bf16 on the card: the hand-written kernel
+  ``kernel.flash_attention_backward_wgmma``
+  (``csrc/flash_attention_bwd_sm90.cu``, wgmma fed by TMA, two passes
+  with no atomics), at every head dim the forward takes;
+* everything else, fp32 on the card and every type on the CPU: the
+  explicit formula below in torch ops, ``flash_attention_backward``,
+  which is also the kernel's plain version. No full-width path trains in
+  fp32; on the card fp32 steps are the depth-2 card-against-CPU check.
+
+Neither route calls the plain forward or a library attention, and
+nothing falls back from one route to the other.
+
+The formula, per block of BLOCK_Q query rows (memory stays at [B, H, BLOCK_Q, Skv]):
 S = Q·Kᵀ·scale over the keys the block can see, the row log-sum-exp and
 P = exp(S - lse) recomputed from it, then
 
@@ -45,6 +57,9 @@ import math
 from typing import Tuple
 
 import torch
+
+from repro_torch.kernels.flash_attention.kernel import (
+    flash_attention_backward_wgmma)
 
 BLOCK_Q = 512
 
@@ -128,12 +143,20 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
 
 
 @torch.library.custom_op("repro_torch::flash_attention_backward",
-                         mutates_args=())
+                         mutates_args=(), device_types="cpu")
 def _flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, do: torch.Tensor,
                               causal: bool
                               ) -> Tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
+    return flash_attention_backward(q, k, v, do, causal)
+
+
+@_flash_attention_backward.register_kernel("cuda")
+def _(q, k, v, do, causal):
+    if q.dtype == torch.bfloat16:
+        return flash_attention_backward_wgmma(
+            q, k, v, do.to(q.dtype).contiguous(), causal)
     return flash_attention_backward(q, k, v, do, causal)
 
 
@@ -156,9 +179,10 @@ def _backward(ctx, grad):
 
 
 def register() -> None:
-    """Gives ``repro_torch::flash_attention`` its autograd formula: the
-    custom op ``repro_torch::flash_attention_backward``, one op to
+    """Gives ``repro_torch::flash_attention`` its gradient: the custom op
+    ``repro_torch::flash_attention_backward``, one op to
     ``FlopCounterMode``, to ``FakeTensorMode`` and to DTensor (whose rule
-    is in ``ops.py``), the formula above inside."""
+    is in ``ops.py``), the kernel or the formula inside by the routes
+    above."""
     torch.library.register_autograd("repro_torch::flash_attention",
                                     _backward, setup_context=_setup_context)

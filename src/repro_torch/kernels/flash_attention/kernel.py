@@ -14,6 +14,11 @@ repeated or padded first; the fp32 kernel's pre-pass writes the split
 parts of K and of V transposed into scratch that the wrapper allocates.
 They take CUDA tensors only and raise on what the kernels do not take;
 the plain version is ``ref.attention_reference``.
+
+``flash_attention_backward_wgmma(q, k, v, do, causal)`` launches the bf16
+backward, ``kernels/csrc/flash_attention_bwd_sm90.cu`` (two passes on
+wgmma fed by TMA: lse, D and dq, then dk and dv), at every head dim the
+forward takes; its plain version is ``backward.flash_attention_backward``.
 """
 from __future__ import annotations
 
@@ -31,12 +36,19 @@ _MAX_GRID_Y = 65535
 
 
 @functools.cache
-def _library(name: str, n_ptrs: int, tiles: tuple) -> ctypes.CDLL:
-    """The built ``csrc/<name>.cu`` with its ``<name>_forward`` (``n_ptrs``
-    device pointers, then B, H, KV, Sq, Skv, d, causal, scale, stream), its
-    ``<name>_error_string`` and its ``<name>_<tile>_tile`` queries bound."""
-    lib = build.load(name)
-    fn = getattr(lib, f"{name}_forward")
+def _library(name: str, n_ptrs: int, tiles: tuple,
+             entry: str = "forward") -> ctypes.CDLL:
+    """The built ``csrc/<name>.cu``, bound by ``_bind``."""
+    return _bind(build.load(name), name, n_ptrs, tiles, entry)
+
+
+def _bind(lib: ctypes.CDLL, name: str, n_ptrs: int, tiles: tuple,
+          entry: str = "forward") -> ctypes.CDLL:
+    """``lib`` (a build of ``csrc/<name>.cu``) with its ``<name>_<entry>``
+    (``n_ptrs`` device pointers, then B, H, KV, Sq, Skv, d, causal, scale,
+    stream), its ``<name>_error_string`` and its ``<name>_<tile>_tile``
+    queries bound."""
+    fn = getattr(lib, f"{name}_{entry}")
     fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int64] * 6 + [
         ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -84,14 +96,14 @@ def _check_grid(q: torch.Tensor, grid_y: int) -> None:
 
 
 def _launch(lib: ctypes.CDLL, name: str, kernel: str, ptrs: tuple, q, k,
-            causal: bool) -> None:
-    """Calls ``<name>_forward`` on ``ptrs`` and q's and k's shapes on the
+            causal: bool, entry: str = "forward") -> None:
+    """Calls ``<name>_<entry>`` on ``ptrs`` and q's and k's shapes on the
     current stream of q's device; raises with the library's message."""
     B, Sq, H, d = q.shape
     _, Skv, KV, _ = k.shape
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, f"{name}_forward")(
+        err = getattr(lib, f"{name}_{entry}")(
             *ptrs, B, H, KV, Sq, Skv, d, int(causal), 1.0 / math.sqrt(d),
             stream)
     if err:
@@ -168,6 +180,42 @@ def flash_attention_d16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def flash_attention_backward_wgmma(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, do: torch.Tensor,
+                                   causal: bool = True):
+    """The bf16 backward kernel (wgmma + TMA) on bf16 q, k, v as
+    ``flash_attention_bshd`` takes them and dO of q's shape, type and
+    layout → (dq, dk, dv) in the layouts of q, k and v. The row statistics
+    that pass 1 hands to pass 2 (lse and D, float32 [B, H, Sq_pad], Sq_pad
+    = Sq rounded up to the query tile) go to scratch allocated here. Both
+    passes run on the current stream of q's device; reruns are
+    bit-identical. Counted in ``flash_attention_backward_wgmma.launches``.
+    """
+    _check(q, k, v, torch.bfloat16)
+    if (do.shape != q.shape or do.dtype != q.dtype or do.device != q.device
+            or not do.is_contiguous() or do.data_ptr() % 16):
+        raise ValueError(f"dO must be a contiguous, 16-byte aligned tensor "
+                         f"of q's shape, type and device, got "
+                         f"{tuple(do.shape)} {do.dtype} on {do.device}")
+    name = "flash_attention_bwd_sm90"
+    lib = _library(name, 9, ("query", "key"), "backward")
+    B, Sq, H, _ = q.shape
+    Skv = k.shape[1]
+    tile = lib.flash_attention_bwd_sm90_query_tile()
+    _check_grid(q, max(-(-Sq // tile),
+                       -(-Skv // lib.flash_attention_bwd_sm90_key_tile())))
+    sq_pad = -(-Sq // tile) * tile
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    stats = torch.empty((2, B, H, sq_pad), dtype=torch.float32,
+                        device=q.device)
+    _launch(lib, name, "flash_attention_backward_wgmma",
+            tuple(t.data_ptr() for t in (q, k, v, do, dq, dk, dv, stats[0],
+                                         stats[1])), q, k, causal,
+            entry="backward")
+    flash_attention_backward_wgmma.launches += 1
+    return dq, dk, dv
+
+
 def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True) -> torch.Tensor:
     """q: [B, Sq, H, d]; k/v: [B, Skv, KV, d], contiguous CUDA tensors of
@@ -191,3 +239,4 @@ flash_attention_bshd.launches = 0
 flash_attention_wgmma.launches = 0
 flash_attention_3xtf32.launches = 0
 flash_attention_d16.launches = 0
+flash_attention_backward_wgmma.launches = 0

@@ -3,8 +3,10 @@
 (``kernel.flash_attention_bshd``), on a CPU tensor the plain version
 (``ref.attention_reference``). ``torch.utils.flop_counter.FlopCounterMode``
 counts the op by ``flash_attention_flops``, not by what either
-implementation runs inside. Its gradient is ``backward.py``'s formula in
-torch ops, the same on both devices. Under ``FakeTensorMode`` the op gives
+implementation runs inside. Its gradient is the op
+``repro_torch::flash_attention_backward`` (``backward.py``): on a CUDA
+tensor in bf16 the backward kernel (``kernel.flash_attention_backward_wgmma``),
+else the formula in torch ops. Under ``FakeTensorMode`` the op gives
 an empty tensor of q's shape; on DTensors it runs on the local shards
 under ``flash_sharding``'s rule."""
 from __future__ import annotations

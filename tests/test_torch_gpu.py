@@ -19,13 +19,16 @@ import torch
 
 from repro_torch.kernels.flash_attention import (attention_reference,
                                                  flash_attention)
+from repro_torch.kernels.flash_attention.backward import (
+    flash_attention_backward)
 from repro_torch.kernels.flash_attention.kernel import (
-    flash_attention_3xtf32, flash_attention_bshd, flash_attention_d16,
-    flash_attention_wgmma)
+    flash_attention_3xtf32, flash_attention_backward_wgmma,
+    flash_attention_bshd, flash_attention_d16, flash_attention_wgmma)
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_reference
 from repro_torch.kernels.ssd_scan.kernel import (ssd_scan_blh, ssd_scan_fma,
                                                  ssd_scan_wgmma)
-from repro_torch.kernels.sweeps import (FLASH_SWEEP, FLASH_TOL,
+from repro_torch.kernels.sweeps import (FLASH_BWD_SWEEP, FLASH_SWEEP,
+                                        FLASH_TOL,
                                         FULL_FLASH_BF16_ROW_RTOL,
                                         FULL_SSD_RTOL, SEGMENT_SUM_RTOL,
                                         SSD_RTOL, SSD_SWEEP, STEP_GRAD_ATOL,
@@ -705,9 +708,10 @@ def _grad_err(got, want):
 def test_flash_backward_on_the_card_matches_the_cpu(cuda, B, Sq, Skv, H, KV,
                                                     d, causal, dtype):
     """loss.backward() through the flash op on the card (its forward the
-    kernel, its backward the formula in torch ops) against the same on
-    the CPU (the plain forward, the same formula): each gradient within
-    1e-4 (fp32) or 5e-2 (bf16) of its max."""
+    kernel, its backward the bf16 kernel or, in fp32, the formula in
+    torch ops) against the same on the CPU (the plain forward, the
+    formula): each gradient within 1e-4 (fp32) or 5e-2 (bf16) of its
+    max."""
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator().manual_seed(d + Sq)
     dt = getattr(torch, dtype)
@@ -722,6 +726,86 @@ def test_flash_backward_on_the_card_matches_the_cpu(cuda, B, Sq, Skv, H, KV,
     assert all(gr.dtype == dt for gr in grads["cuda"])
     assert _grad_err(grads["cuda"], grads["cpu"]) <= (
         1e-4 if dtype == "float32" else 5e-2)
+
+
+def _bwd_inputs(dev, B, Sq, Skv, H, KV, d, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    return [torch.randn(s, device=dev, generator=g).to(dt)
+            for s in ((B, Sq, H, d), (B, Skv, KV, d), (B, Skv, KV, d),
+                      (B, Sq, H, d))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,d,causal", FLASH_BWD_SWEEP)
+def test_flash_backward_kernel_matches_the_formula(cuda, B, Sq, Skv, H, KV,
+                                                   d, causal):
+    """The bf16 backward kernel (``flash_attention_backward_wgmma``, one
+    count a call) against its plain version, the formula, run in fp32 on
+    the same values: each gradient finite, of its input's type, within
+    2 × the bf16 formula's own error against it + 1e-3·max|g| (no less
+    accurate than the formula); a rerun bit-identical; rows that see no
+    key (causal, Sq > Skv) get dq = 0 exactly."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, do = _bwd_inputs(cuda, B, Sq, Skv, H, KV, d, "bfloat16",
+                              Sq + d)
+    before = flash_attention_backward_wgmma.launches
+    got = flash_attention_backward_wgmma(q, k, v, do, causal)
+    again = flash_attention_backward_wgmma(q, k, v, do, causal)
+    assert flash_attention_backward_wgmma.launches - before == 2
+    exact = flash_attention_backward(*(t.float() for t in (q, k, v, do)),
+                                     causal)
+    plain = flash_attention_backward(q, k, v, do, causal)
+    for a, b, p, e in zip(got, again, plain, exact):
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a.float()).all()
+        assert torch.equal(_bits(a), _bits(b))
+        mx = float(e.abs().max())
+        e_k = float((a.float() - e).abs().max())
+        e_f = float((p.float() - e).abs().max())
+        assert e_k <= 2 * e_f + 1e-3 * mx, (e_k, e_f, mx)
+    if causal and Sq > Skv:
+        assert not got[0][:, :Sq - Skv].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_backward_route_on_the_card(cuda, dtype):
+    """``repro_torch::flash_attention_backward`` on the card: bf16 through
+    the kernel (one launch), fp32 through the formula (none), equal bit
+    for bit to the route's function; autograd through the flash op takes
+    the same route."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, do = _bwd_inputs(cuda, 1, 200, 200, 4, 2, 64, dtype, 5)
+    want_launches = 1 if dtype == "bfloat16" else 0
+    route = (flash_attention_backward_wgmma if dtype == "bfloat16"
+             else flash_attention_backward)
+    before = flash_attention_backward_wgmma.launches
+    got = torch.ops.repro_torch.flash_attention_backward(q, k, v, do, True)
+    assert flash_attention_backward_wgmma.launches - before == want_launches
+    for a, b in zip(got, route(q, k, v, do, True)):
+        assert torch.equal(_bits(a), _bits(b))
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = flash_attention_backward_wgmma.launches
+    flash_attention(*ins, causal=True).backward(do)
+    assert flash_attention_backward_wgmma.launches - before == want_launches
+    for t, b in zip(ins, got):
+        assert torch.equal(_bits(t.grad), _bits(b))
+
+
+@pytest.mark.gpu
+def test_flash_backward_kernel_rejects_what_it_does_not_take(cuda):
+    """float32, a dO of another shape or type, a non-contiguous dO, a head
+    dim the forward does not take: ValueError before any launch."""
+    q, k, v, do = _bwd_inputs(cuda, 1, 64, 64, 2, 1, 64, "bfloat16", 0)
+    before = flash_attention_backward_wgmma.launches
+    bad = [(q.float(), k.float(), v.float(), do.float()),
+           (q, k, v, do[:, :32]), (q, k, v, do.float()),
+           (q, k, v, do.transpose(1, 2).contiguous().transpose(1, 2)),
+           tuple(t[..., :48].contiguous() for t in (q, k, v, do))]
+    for args in bad:
+        with pytest.raises(ValueError):
+            flash_attention_backward_wgmma(*args, True)
+    assert flash_attention_backward_wgmma.launches == before
 
 
 @pytest.mark.gpu

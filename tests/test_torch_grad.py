@@ -100,6 +100,30 @@ def test_flash_backward_row_without_keys_is_zero():
     assert torch.isfinite(q.grad).all() and torch.isfinite(k.grad).all()
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_op_runs_the_formula_on_the_cpu(dtype, causal):
+    """On the CPU the op ``repro_torch::flash_attention_backward`` runs the
+    formula (the bf16 kernel is the card's route): bit for bit
+    ``flash_attention_backward``, in both types, and autograd through the
+    flash op gives the same gradients."""
+    from repro_torch.kernels.flash_attention.backward import (
+        flash_attention_backward)
+    g = torch.Generator().manual_seed(3)
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.randn(s, generator=g).to(dt)
+                   for s in ((1, 70, 4, 32), (1, 90, 2, 32), (1, 90, 2, 32),
+                             (1, 70, 4, 32)))
+    got = torch.ops.repro_torch.flash_attention_backward(q, k, v, do, causal)
+    want = flash_attention_backward(q, k, v, do, causal)
+    for a, b in zip(got, want):
+        assert a.dtype == dt and torch.equal(a, b)
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    flash_attention(*ins, causal=causal).backward(do)
+    for t, b in zip(ins, want):
+        assert torch.equal(t.grad, b)
+
+
 # (B, L, H, P, G, N, chunk)
 SSD_CASES = [(2, 64, 4, 16, 1, 16, 16),
              (1, 96, 4, 8, 2, 8, 32),

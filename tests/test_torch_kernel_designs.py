@@ -19,9 +19,20 @@ inputs, under the limits of ``repro_torch.kernels.sweeps``.
 * ``ssd_design``: ``csrc/ssd_scan.cu``: chunk states, a state pass and
   chunk outputs at chunk length Q; in bf16 the operands computed in
   between are rounded where the kernel rounds them (B·w, h_in, M).
+* ``flash_backward_design``: ``csrc/flash_attention_bwd_sm90.cu`` in
+  bf16: pass 1 over key tiles of 64, once for the online max, sum and
+  Dacc (D = rowsum(P ⊙ dP) in fp32 from the same sweep) and once for dS
+  and dQ; pass 2 per CTA of 128 keys (two warpgroups of 64) over query
+  tiles of 64 from each warpgroup's causal frontier, head by head of the
+  GQA group; exp2 with log2(e) folded into the scale; P and dS rounded
+  to bf16 as the products' operands, dq, dk, dv once at the end; d 16
+  padded to 32 zero columns as the kernel's tiles are. It is held
+  against ``jax.grad`` of ``models.layers.chunked_attention``, the JAX
+  package's training attention (it has no backward kernel).
 """
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,7 +41,11 @@ import torch
 from repro.kernels.flash_attention import attention_reference as jax_attention
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.kernels.ssd_scan import ssd_scan as jax_ssd_scan
-from repro_torch.kernels.sweeps import (FLASH_SWEEP, FLASH_TOL,
+from repro.models.layers import chunked_attention
+from repro_torch.kernels.flash_attention.backward import (
+    flash_attention_backward)
+from repro_torch.kernels.sweeps import (FLASH_BWD_RTOL, FLASH_BWD_SWEEP,
+                                        FLASH_SWEEP, FLASH_TOL,
                                         FULL_FLASH_BF16_ROW_RTOL,
                                         FULL_SSD_RTOL, SSD_RTOL, SSD_SWEEP)
 
@@ -326,3 +341,232 @@ def test_ssd_design_matches_jax(B, L, H, P, G, N, chunk, dtype, Q):
     scale = float(np.abs(j).max())
     assert err <= SSD_RTOL[dtype] * scale
     assert err <= FULL_SSD_RTOL[dtype] * scale
+
+
+# ---- flash backward --------------------------------------------------------
+
+BWD_KEY_TILE = 64       # flash_attention_bwd_sm90.cu kBN1 (pass 1)
+BWD_CTA_KEYS = 128      # kBN2 (pass 2: two warpgroups of 64 keys)
+BWD_QUERY_TILE = 64     # kBM2 (pass 2)
+
+
+def _bwd_operands(q, k, v, do):
+    """[B, heads, S, 32 or d] float32 views of the bf16 operands (k, v
+    per KV head), zero-padded to 32 columns at d 16 as the kernel's tiles
+    are."""
+    pad = max(0, 32 - q.shape[3])
+    return [torch.nn.functional.pad(t.float().permute(0, 2, 1, 3),
+                                    (0, pad)) for t in (q, k, v, do)]
+
+
+def _bwd_mask(Sq, Skv, causal, q_offset, rows, keys):
+    """True where query ``rows`` sees key ``keys`` (keys past Skv never)."""
+    seen = keys[None, :] < Skv
+    if causal:
+        seen = seen & (keys[None, :] <= rows[:, None] + q_offset)
+    return seen & (rows[:, None] < Sq)
+
+
+def flash_backward_stats(q, k, v, do, causal: bool, q_offset=None):
+    """Pass 1's first sweep: lse (base 2, of S·scale·log2 e) and D per
+    query row [B, H, Sq], from the online max, sum and Dacc over key tiles
+    of BWD_KEY_TILE."""
+    B, Sq, H, d = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    off = Skv - Sq if q_offset is None else q_offset
+    qf, kf, vf, dof = _bwd_operands(q, k, v, do)
+    kf, vf = (t.repeat_interleave(H // KV, 1) for t in (kf, vf))
+    sl2 = (1.0 / math.sqrt(d)) * LOG2E
+    rows = torch.arange(Sq)
+    m = torch.full((B, H, Sq), -math.inf)
+    l = torch.zeros(B, H, Sq)
+    r = torch.zeros(B, H, Sq)
+    for k0 in range(0, Skv, BWD_KEY_TILE):
+        kt, vt = (t[:, :, k0:k0 + BWD_KEY_TILE] for t in (kf, vf))
+        s = qf @ kt.transpose(-1, -2)
+        dp = dof @ vt.transpose(-1, -2)
+        seen = _bwd_mask(Sq, Skv, causal, off, rows,
+                         torch.arange(k0, k0 + kt.shape[2]))
+        s = s.masked_fill(~seen, -math.inf)
+        m_new = torch.maximum(m, s.amax(-1))
+        ms = torch.where(m_new == -math.inf, torch.zeros(()), m_new * sl2)
+        alpha = torch.exp2(m * sl2 - ms)
+        p = torch.exp2(s * sl2 - ms[..., None])
+        l = l * alpha + p.sum(-1)
+        r = r * alpha + (p * dp).sum(-1)
+        m = m_new
+    lse = torch.where(l > 0, m * sl2 + torch.log2(l), torch.zeros(()))
+    D = torch.where(l > 0, r / l, torch.zeros(()))
+    return lse, D
+
+
+def flash_backward_design(q, k, v, do, causal: bool, q_offset=None):
+    """q, do [B, Sq, H, d], k/v [B, Skv, KV, d] bf16 → (dq, dk, dv) bf16,
+    the way the backward kernel computes them. ``q_offset`` as
+    ``chunked_attention`` takes it (query i sees key j <= i + q_offset);
+    the kernel's is always Skv - Sq, the default."""
+    B, Sq, H, d = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    rep = H // KV
+    off = Skv - Sq if q_offset is None else q_offset
+    scale = 1.0 / math.sqrt(d)
+    sl2 = scale * LOG2E
+    lse, D = flash_backward_stats(q, k, v, do, causal, q_offset)
+    qf, kf, vf, dof = _bwd_operands(q, k, v, do)
+    rows = torch.arange(Sq)
+
+    def p_ds(qs, dos, kt, vt, row_ids, key_ids, lse_r, D_r):
+        """P and dS (fp32) of query rows against keys."""
+        s = qs @ kt.transpose(-1, -2)
+        dp = dos @ vt.transpose(-1, -2)
+        seen = _bwd_mask(Sq, Skv, causal, off, row_ids, key_ids)
+        s = s.masked_fill(~seen, -math.inf)
+        p = torch.exp2(s * sl2 - lse_r[..., None])
+        return p, p * (dp - D_r[..., None]) * scale
+
+    # pass 1, second sweep: dQ += dS·K over key tiles of 64
+    kr, vr = (t.repeat_interleave(rep, 1) for t in (kf, vf))
+    dq = torch.zeros_like(qf)
+    for k0 in range(0, Skv, BWD_KEY_TILE):
+        kt, vt = kr[:, :, k0:k0 + BWD_KEY_TILE], vr[:, :, k0:k0 + BWD_KEY_TILE]
+        _, ds = p_ds(qf, dof, kt, vt, rows,
+                     torch.arange(k0, k0 + kt.shape[2]), lse, D)
+        dq = dq + ds.bfloat16().float() @ kt
+    # pass 2: per warpgroup of 64 keys, dK and dV over the GQA group's
+    # heads, query tiles of 64 from the warpgroup's causal frontier
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    n_qt = -(-Sq // BWD_QUERY_TILE)
+    for w0 in range(0, Skv, BWD_CTA_KEYS // 2):
+        keys = torch.arange(w0, w0 + 64)
+        kt, vt = kf[:, :, w0:w0 + 64], vf[:, :, w0:w0 + 64]
+        first = max(0, w0 - off) // BWD_QUERY_TILE if causal else 0
+        acc_k = torch.zeros(B, KV, kt.shape[2], qf.shape[3])
+        acc_v = torch.zeros_like(acc_k)
+        for r_ in range(rep):
+            heads = torch.arange(KV) * rep + r_
+            for qt in range(first, n_qt):
+                q0 = qt * BWD_QUERY_TILE
+                sl = slice(q0, q0 + BWD_QUERY_TILE)
+                p, ds = p_ds(qf[:, heads, sl], dof[:, heads, sl], kt, vt,
+                             rows[sl], keys[:kt.shape[2]],
+                             lse[:, heads, sl], D[:, heads, sl])
+                acc_v = acc_v + p.bfloat16().float().transpose(-1, -2) \
+                    @ dof[:, heads, sl]
+                acc_k = acc_k + ds.bfloat16().float().transpose(-1, -2) \
+                    @ qf[:, heads, sl]
+        dk[:, :, w0:w0 + 64] = acc_k
+        dv[:, :, w0:w0 + 64] = acc_v
+    return tuple(t[..., :d].permute(0, 2, 1, 3).contiguous().bfloat16()
+                 for t in (dq, dk, dv))
+
+
+def _bwd_arrays(B, Sq, Skv, H, KV, d, seed, q_scale=1.0):
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (rng.standard_normal(s).astype(np.float32)
+                   for s in ((B, Sq, H, d), (B, Skv, KV, d),
+                             (B, Skv, KV, d), (B, Sq, H, d)))
+    return (q * q_scale).astype(np.float32), k, v, do
+
+
+def _jax_grads(q, k, v, do, causal, q_offset):
+    """jax.grad of chunked_attention in bf16, cotangent ``do``."""
+    Sq = q.shape[1]
+
+    def f(q, k, v):
+        o = chunked_attention(q, k, v, causal=causal, q_chunk=Sq,
+                              q_offset=q_offset)
+        return jnp.sum(o.astype(jnp.float32) * do)
+    return [np.asarray(g, np.float32) for g in jax.jit(jax.grad(
+        f, argnums=(0, 1, 2)))(*(jnp.asarray(a, jnp.bfloat16)
+                                 for a in (q, k, v)))]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,d,causal", FLASH_BWD_SWEEP)
+def test_flash_backward_design_matches_jax_grad(B, Sq, Skv, H, KV, d,
+                                                causal):
+    """Each gradient within 5e-2·max|g| of jax.grad(chunked_attention) on
+    the same bf16 inputs. Rows that see no key (causal, Sq > Skv) give 0
+    in the port, where chunked_attention's -1e30 mask spreads them
+    uniformly over the keys: their cotangent is 0 here, and their dq must
+    be 0 exactly."""
+    q, k, v, do = _bwd_arrays(B, Sq, Skv, H, KV, d, seed=Sq + d)
+    blind = max(0, Sq - Skv) if causal else 0
+    do[:, :blind] = 0.0
+    want = _jax_grads(q, k, v, do, causal, Skv - Sq)
+    got = flash_backward_design(
+        *(torch.from_numpy(a).bfloat16() for a in (q, k, v, do)), causal)
+    for name, g, w in zip("qkv", got, want):
+        g = g.float().numpy()
+        assert g.shape == w.shape and np.isfinite(g).all(), name
+        err = np.abs(g - w).max()
+        assert err <= FLASH_BWD_RTOL * np.abs(w).max(), (name, err)
+    if blind:
+        q2 = torch.from_numpy(q).bfloat16()
+        do2 = torch.randn(q2.shape).bfloat16()
+        dq, _, _ = flash_backward_design(q2, torch.from_numpy(k).bfloat16(),
+                                         torch.from_numpy(v).bfloat16(), do2,
+                                         causal)
+        assert not dq[:, :blind].any()
+
+
+def test_flash_backward_online_d_is_the_two_pass_rowsum():
+    """Near-uniform rows (q scaled by 1e-3, so dP - D is a small
+    difference): pass 1's online D equals rowsum(P ⊙ dP) taken in float64
+    in two passes (softmax first) within fp32 rounding, 1e-5 of
+    rowsum(|P ⊙ dP|); lse within 1e-5 of the float64 log2-sum-exp2."""
+    B, Sq, Skv, H, KV, d = 1, 200, 333, 4, 2, 64
+    q, k, v, do = _bwd_arrays(B, Sq, Skv, H, KV, d, seed=11, q_scale=1e-3)
+    t = [torch.from_numpy(a).bfloat16() for a in (q, k, v, do)]
+    lse, D = flash_backward_stats(*t, causal=True)
+    q64, k64, v64, do64 = (x.double().permute(0, 2, 1, 3) for x in t)
+    k64, v64 = (x.repeat_interleave(H // KV, 1) for x in (k64, v64))
+    s = q64 @ k64.transpose(-1, -2) / math.sqrt(d)
+    keep = torch.arange(Skv)[None, :] <= torch.arange(Sq)[:, None] + Skv - Sq
+    s = s.masked_fill(~keep, -math.inf)
+    p = torch.softmax(s, -1)
+    pdp = p * (do64 @ v64.transpose(-1, -2))
+    assert bool(((D.double() - pdp.sum(-1)).abs()
+                 <= 1e-5 * pdp.abs().sum(-1)).all())
+    lse64 = torch.logsumexp(s, -1) * LOG2E
+    assert bool(((lse.double() - lse64).abs() <= 1e-5 * lse64.abs().clamp(
+        min=1.0)).all())
+
+
+def test_flash_backward_design_key_tile_no_query_sees():
+    """A key tile that no query sees gives dk = dv = 0 exactly, and the
+    keys that are seen still match jax.grad: q_offset 0 with Sq 64 <
+    Skv 320 (the kernel's own offset is Skv - Sq, under which the last
+    query sees every key; this holds its frontier logic to the case)."""
+    B, Sq, Skv, H, KV, d = 1, 64, 320, 4, 2, 32
+    q, k, v, do = _bwd_arrays(B, Sq, Skv, H, KV, d, seed=3)
+    want = _jax_grads(q, k, v, do, True, 0)
+    got = flash_backward_design(
+        *(torch.from_numpy(a).bfloat16() for a in (q, k, v, do)), True,
+        q_offset=0)
+    for name, g, w in zip("qkv", got, want):
+        g = g.float().numpy()
+        err = np.abs(g - w).max()
+        assert err <= FLASH_BWD_RTOL * np.abs(w).max(), (name, err)
+    for g in got[1:]:
+        assert not g[:, Sq:].float().any()      # keys 64..319: none seen
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,d,causal",
+                         [(1, 300, 300, 4, 2, 128, True),
+                          (1, 200, 150, 5, 1, 64, False)])
+def test_flash_backward_design_no_less_accurate_than_the_formula(
+        B, Sq, Skv, H, KV, d, causal):
+    """Against the formula in fp32 on the same (bf16) values, each
+    gradient of the replay is within 2 × the bf16 formula's own error +
+    1e-3·max|g|, the limit chip_smoke.py holds the kernel to."""
+    q, k, v, do = _bwd_arrays(B, Sq, Skv, H, KV, d, seed=7)
+    t = [torch.from_numpy(a).bfloat16() for a in (q, k, v, do)]
+    exact = flash_attention_backward(*(x.float() for x in t), causal)
+    formula = flash_attention_backward(*t, causal)
+    design = flash_backward_design(*t, causal)
+    for name, e, f, g in zip("qkv", exact, formula, design):
+        mx = float(e.abs().max())
+        e_f = float((f.float() - e).abs().max())
+        e_g = float((g.float() - e).abs().max())
+        assert e_g <= 2 * e_f + 1e-3 * mx, (name, e_g, e_f)
