@@ -11,7 +11,7 @@ JSON line; any failure exits non-zero:
   card    nvidia-smi's name and power limit (also printed raw), torch's name
   build   the kernels' build, timed as set-up, with ptxas's registers,
           shared memory and spills of every kernel; the window_agg, fp32
-          flash and flash backward kernels must not spill
+          flash, flash backward and SSD backward kernels must not spill
   kernel  every kernel against its plain torch version on the card, at the
           test sweeps' shapes, the main paths' shapes (the calibrator's
           dry-runs among them) and full width
@@ -129,35 +129,41 @@ JSON line; any failure exits non-zero:
           the plain recurrence; the path's kernels by CUDA events at the
           path's shapes, which are the ``kernels`` line's model-path rows
   train   the language models' training path: flash at head dim 16 (the
-          reduced() configs': ``flash_attention_d16``, the CUDA-core
-          kernel both flash sources build for it) against its plain
-          version, bf16 and fp32, causal and not, GQA, Sq != Skv; the
-          flash and SSD backwards (autograd through the ops, whose forward
-          is the kernel; flash's backward in bf16 the kernel
-          ``flash_attention_backward_wgmma``, launched once per bf16 case
-          and never in fp32, the SSD's the formula) against autograd
-          through the plain versions and against the formula on the
-          CPU; the flash backward kernel also against the formula in fp32
-          on the same values (no less accurate than the bf16 formula) and
+          reduced() configs') against its plain version, bf16 on the wgmma
+          kernel (``flash_attention_wgmma``, 32-column tiles whose 16
+          columns past d TMA fills with zeros) and fp32 on the CUDA-core
+          one (``flash_attention_d16``), causal and not, GQA, Sq != Skv;
+          the flash and SSD backwards (autograd through the ops, whose
+          forward is the kernel; in bf16 each backward its kernel,
+          ``flash_attention_backward_wgmma`` and
+          ``ssd_scan_backward_wgmma``, launched once per bf16 case and
+          never in fp32, where the formulas run) against autograd through
+          the plain versions and against the formula on the CPU; each
+          backward kernel also against its formula in fp32 on the same
+          values (no less accurate than the bf16 formula) and
           bit-identical on a rerun; then timed at the full-width training
-          shapes (qwen3-1.7b, granite-moe-1b-a400m) beside the formula and
-          SDPA's backward;
+          shapes (flash: qwen3-1.7b, granite-moe-1b-a400m, beside the
+          formula and SDPA's backward; the SSD: mamba2-1.3b, beside the
+          formula and the forward kernel, held to the formula in fp32
+          there first);
           ``train_loop`` at full width (qwen3-1.7b, mamba2-1.3b; batch 2
           — train_4k's global batch of 256 cut to one card —, seq 4,096,
           3 steps, remat "full", bf16): per step ms, tokens/s, peak
           memory, loss and grad norm, all finite, and the kernels'
           launches per step, exactly 2 per path layer (the forward and
           its recompute: 56 flash_attention_wgmma, 96 ssd_scan_wgmma), 1
-          per attention layer of the backward kernel (28
-          flash_attention_backward_wgmma) and nothing else; the kernels'
-          device ms inside a step
+          per path layer of the backward kernel (28
+          flash_attention_backward_wgmma, 48 ssd_scan_backward_wgmma) and
+          nothing else; the kernels' device ms inside a step
           (``chip_smoke.py --trace-train ARCH``, depth 2, a child
           process); depth cut to 2 at full width: one fp32 train step on
           the card against the CPU's (loss and grad norm within rtol
           1e-4, parameters within 2·lr + 1e-6); the reduced defaults on
           the card (head dim 16): train_loop smollm-135m for 20 steps
-          (the loss drops; the backward kernel at d 16 once a layer a
-          step) and 3 fp32 steps, serve_demo,
+          (the loss drops; the wgmma forward and the backward kernel at
+          d 16 once a layer a step; the d 16 kernels and SDPA timed, and
+          their device ms from torch.profiler in a child process,
+          ``chip_smoke.py --trace-d16``) and 3 fp32 steps, serve_demo,
           measure_step_time of schedule_run's archs, ``schedule_run
           --jobs 3 --steps 2`` (its plan line equal to the CPU's); the
           path's kernels by CUDA events for the ``kernels`` line
@@ -170,7 +176,8 @@ JSON line; any failure exits non-zero:
           a mesh and then on the mesh (DTensor parameters, the batch
           sharded by the loader): exactly 56 flash_attention_wgmma / 96
           ssd_scan_wgmma / 48 flash_attention_wgmma launches a step (and
-          28 / 0 / 24 flash_attention_backward_wgmma) and nothing else,
+          28 / 0 / 24 flash_attention_backward_wgmma, 0 / 48 / 0
+          ssd_scan_backward_wgmma) and nothing else,
           losses within DIST_LOSS_RTOL and grad norms within
           DIST_GNORM_RTOL of the mesh-less steps, ms per step, peak memory
           and DTensor's host overhead per step; then the port's dry-run
@@ -190,9 +197,12 @@ JSON line; any failure exits non-zero:
           bound; the kernel and the library call as the median of 5
           batches of 20 launches after 5 warm-ups, with the batches'
           spread; at full width each kernel's device time from
-          torch.profiler (the SSD's three passes apart; a trace that saw
-          no kernel prints a ``profiler_retry`` line and is taken again);
-          the host-to-device
+          torch.profiler in a child process (``chip_smoke.py
+          --trace-full``; the SSD's three passes apart; a trace that saw
+          no kernel prints a ``profiler_retry`` line and is taken again,
+          and a child that failed a ``trace_child_retry`` line and is
+          started again: late in a long process the profiler has lost
+          every device event of three traces running); the host-to-device
           copy and ``run_window`` end to end; peak memory
 
 The bound is the larger of the bytes (each input read once, each output
@@ -208,6 +218,16 @@ gives ``bound_by`` as ``bytes`` or ``operations`` and the finer word as
 
 Then one line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
 {...}}``. With no CUDA card it exits non-zero before printing any result.
+
+    python3 chip_smoke.py --train-steps ARCH STEPS
+
+runs no phase: it times STEPS full-width training steps of ARCH
+(``train_steps``). It uses the checkout beside this file and only
+``train_loop``'s public arguments, so a copy of this file in the root of
+another checkout (an earlier commit unpacked with ``git archive``) times
+that checkout, and two commits compare in one call on one card.
+``--trace-d16`` does the same for flash at head dim 16
+(``trace_d16``).
 """
 from __future__ import annotations
 
@@ -510,8 +530,8 @@ def zeroed_counters() -> dict:
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_3xtf32, flash_attention_backward_wgmma,
         flash_attention_bshd, flash_attention_d16, flash_attention_wgmma)
-    from repro_torch.kernels.ssd_scan.kernel import (ssd_scan_blh, ssd_scan_fma,
-                                                     ssd_scan_wgmma)
+    from repro_torch.kernels.ssd_scan.kernel import (
+        ssd_scan_backward_wgmma, ssd_scan_blh, ssd_scan_fma, ssd_scan_wgmma)
     from repro_torch.kernels.window_agg.kernel import segment_reduce
     counters = {"window_agg": segment_reduce, "flash_attention":
                 flash_attention_bshd, "flash_attention_wgmma":
@@ -519,7 +539,8 @@ def zeroed_counters() -> dict:
                 flash_attention_3xtf32, "flash_attention_d16":
                 flash_attention_d16, "flash_attention_backward_wgmma":
                 flash_attention_backward_wgmma, "ssd_scan": ssd_scan_blh,
-                "ssd_scan_wgmma": ssd_scan_wgmma, "ssd_scan_fma": ssd_scan_fma}
+                "ssd_scan_wgmma": ssd_scan_wgmma, "ssd_scan_fma": ssd_scan_fma,
+                "ssd_scan_backward_wgmma": ssd_scan_backward_wgmma}
     for c in counters.values():
         c.launches = 0
     segment_reduce.scalar_launches = segment_reduce.vector_launches = 0
@@ -551,10 +572,11 @@ def calibration_path() -> dict:
             f"the dry-run's [768, 1] took 16-byte loads: {launches}")
 
     # the calibrator's flash dry-run has head dim 64 and runs no backward:
-    # d 16 and the backward kernel are not its path
+    # d 16 and the backward kernels are not its path
     require(all(n > 0 for k, n in launches.items()
                 if k not in ("flash_attention_d16",
-                             "flash_attention_backward_wgmma")),
+                             "flash_attention_backward_wgmma",
+                             "ssd_scan_backward_wgmma")),
             f"a kernel of the calibration path never launched: {launches}")
     require(cal.device.type == "cuda", f"calibrator on {cal.device}")
     require(len(cal.log) == 3
@@ -1280,6 +1302,25 @@ LM_PLAIN = (1, 256)
 LM_PLAIN_LAYERS = 2
 LM_BF16_ROW_RTOL = 5e-2
 TRACE_TIMEOUT_S = 300
+CHILD_ATTEMPTS = 2          # processes trace_child starts before it fails
+
+
+def trace_child(what, *args) -> list:
+    """Runs this file with ``args`` (a ``--trace-*`` mode) in a process of
+    its own and returns the lines of its standard output. A child that
+    exits non-zero (its traces saw no device time PROFILER_ATTEMPTS times)
+    is reported on a ``trace_child_retry`` line and started again, up to
+    CHILD_ATTEMPTS times: a new process starts a new profiler."""
+    for attempt in range(1, CHILD_ATTEMPTS + 1):
+        child = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), *args],
+            capture_output=True, text=True, timeout=TRACE_TIMEOUT_S)
+        if child.returncode == 0:
+            return child.stdout.splitlines()
+        emit("trace_child_retry", what=what, attempt=attempt,
+             exit=child.returncode, stderr=child.stderr[-1500:])
+    raise SmokeFailure(f"{what}: exit {child.returncode} in "
+                       f"{CHILD_ATTEMPTS} processes\n{child.stderr[-3000:]}")
 
 
 def per_call_device_ms(fn, accept) -> dict:
@@ -1505,18 +1546,14 @@ def lm_path(dev, gen, smi0) -> list:
             nbytes = (2 * B * S * H * P * 2 + B * S * H * 4 + H * 4
                       + 2 * B * S * G * N * 2 + B * H * P * N * 4)
             bnd = bound(nbytes, ssd_flops(B, S, H, P, N), "bfloat16")
-        child = subprocess.run(
-            [sys.executable, str(Path(__file__).resolve()),
-             "--trace-prefill", arch], capture_output=True, text=True,
-            timeout=TRACE_TIMEOUT_S)
-        require(child.returncode == 0, f"{arch} prefill trace: exit "
-                f"{child.returncode}\n{child.stderr[-3000:]}")
-        inside = json.loads(child.stdout.splitlines()[-1])
+        lines = trace_child(f"{arch} prefill trace", "--trace-prefill",
+                            arch)
+        inside = json.loads(lines[-1])
         emit("lm", case="in_model_device_ms", arch=arch, dtype="bfloat16",
              layers=LM_PLAIN_LAYERS, shape=list(shape), kernels=inside,
              ms_per_launch=sum(v["ms_per_launch"] for v in inside.values()),
              bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"],
-             profiler_retries=len(child.stdout.splitlines()) - 1,
+             profiler_retries=len(lines) - 1,
              nvidia_smi=smi0)
 
         Bp, Sp = LM_PLAIN
@@ -1587,7 +1624,7 @@ def lm_path(dev, gen, smi0) -> list:
                 else:
                     ok = err <= FLASH_TOL[dt]
                 del q, k, v, out, ref, diff
-                t = time_flash(dev, gen, shp, dt, profile=False)
+                t = time_flash(dev, gen, shp, dt)
             else:
                 args = ssd_inputs(dev, gen, *shp[:6], dt)
                 y, h = ssd_scan_blh(*args, return_state=True)
@@ -1600,7 +1637,7 @@ def lm_path(dev, gen, smi0) -> list:
                       <= tol * float(hr.abs().max()))
                 del args, y, h, yr, hr
                 t = time_ssd(dev, gen, shp, dt, return_state=True,
-                             profile=False, plain_reps=1)
+                             plain_reps=1)
             require(ok, f"{name} at the path's shape {shp}: max |err| {err}")
             path = ("bf16 prefill" if dt == "bfloat16"
                     else "fp32 forward + prefill")
@@ -1654,7 +1691,9 @@ BWD_FLASH_CASES = ((2, 192, 192, 4, 2, 16, True, 1.0),
                    (1, 448, 1500, 16, 16, 64, False, 1.0),
                    (1, 160, 96, 4, 2, 64, True, 1.0),     # 64 rows see no key
                    (1, 512, 512, 4, 2, 128, True, 1e-3))  # near-uniform rows
-BWD_SSD_CASES = ((2, 256, 4, 64, 1, 128, 64), (1, 200, 4, 16, 2, 32, 64))
+BWD_SSD_CASES = ((2, 256, 4, 64, 1, 128, 64), (1, 200, 4, 16, 2, 32, 64),
+                 # G 1 shared by 8 heads, L past the last whole chunk of 64
+                 (1, 328, 8, 64, 1, 128, 64))
 BWD_RTOL = {"float32": 1e-4, "bfloat16": 5e-2}
 BWD_SSD_RTOL = {"float32": 1e-4, "bfloat16": 1e-1}
 
@@ -1691,11 +1730,14 @@ def trace_train(arch) -> None:
     dev = torch.device("cuda", 0)
     cfg = dataclasses.replace(get_arch(arch), n_layers=TRAIN_PLAIN_LAYERS)
     # the kernels and their launches per layer in a step: remat "full"
-    # runs the forward twice (forward and recompute), the backward once
+    # runs the forward twice (forward and recompute), the backward once;
+    # the SSD backward runs the forward's first two passes again
     launches = ({"flash_forward_sm90": 2, "flash_bwd_dq": 1,
                  "flash_bwd_dkdv": 1} if cfg.ssm is None else
-                {"chunk_state_wgmma": 2, "state_pass": 2,
-                 "chunk_output_wgmma": 2})
+                {"chunk_state_wgmma": 3, "state_pass": 3,
+                 "chunk_output_wgmma": 2, "chunk_dstate_wgmma": 1,
+                 "state_pass_reverse": 1, "chunk_adjoint_wgmma": 1,
+                 "group_sum": 1, "dA_sum": 1})
     names = tuple(launches)
     state = init_train_state(M.init_params(
         cfg, torch.Generator(device=dev).manual_seed(SEED)))
@@ -1720,28 +1762,99 @@ def trace_train(arch) -> None:
     print(json.dumps(inside(per_call_device_ms(one, accept))), flush=True)
 
 
-def _bwd_vs_fp32_formula(what, got, inputs, causal) -> dict:
-    """The bf16 backward kernel's gradients ``got`` on bf16 ``inputs`` (q,
-    k, v, dO) held, each, to the formula run in fp32 on the same values:
-    within BWD_RTOL·max|g| of the bf16 formula (its plain version), and
-    within 2 × the bf16 formula's own error against the fp32 one +
-    1e-3·max|g|, no less accurate than its plain version. Returns
-    {dq, dk, dv: the three errors, each / max|g| of the fp32 formula}."""
-    from repro_torch.kernels.flash_attention.backward import (
-        flash_attention_backward)
+def trace_d16() -> None:
+    """(Run as ``chip_smoke.py --trace-d16``, by ``train_path``.) Flash at
+    head dim 16 at the reduced train_loop's shape (FLASH_D16_CASES[0]),
+    bf16 and fp32, through ``flash_attention_bshd`` (whichever kernel this
+    checkout routes it to) and SDPA on the same inputs, each under
+    torch.profiler over 50 calls (``kernel_device_ms``); prints {dtype:
+    {device_ms, library_device_ms, device_ms_by_kernel,
+    library_device_ms_by_kernel}} on its last line, device ms per call. A
+    process of its own, as ``trace_train``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bshd
 
-    plain = flash_attention_backward(*inputs, causal)
-    exact = flash_attention_backward(*(t.float() for t in inputs), causal)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    B, Sq, Skv, H, KV, d, causal = FLASH_D16_CASES[0]
+    out = {}
+    for dt in ("bfloat16", "float32"):
+        q, k, v = flash_inputs(dev, gen, B, Sq, Skv, H, KV, d, dt)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        kern = kernel_device_ms(
+            lambda: flash_attention_bshd(q, k, v, causal=causal), n=50)
+        lib = kernel_device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True), n=50)
+        out[dt] = {"device_ms": sum(kern.values()),
+                   "library_device_ms": sum(lib.values()),
+                   "device_ms_by_kernel": kern,
+                   "library_device_ms_by_kernel": lib}
+    print(json.dumps(out), flush=True)
+
+
+def train_steps(arch, steps) -> None:
+    """(Run as ``chip_smoke.py --train-steps ARCH STEPS``; no phase runs
+    it.) ``train_loop`` of ``arch`` at full width with ``TrainHParams()``
+    (remat "full", bf16) at TRAIN_FULL's batch and seq for ``steps``
+    steps from the seeded weights. Prints the card's name and power limit,
+    then one JSON line: each step's ms (train_loop's host clock around
+    the step, read after its loss is back on the host), the warm steps'
+    median (every step after the first), Python's garbage collections and
+    their seconds between one step's end and the next's, the card's SM
+    clock (MHz), power draw (W) and temperature (C) after each step
+    (nvidia-smi, outside the timed span), and the peak memory (the
+    process's, which is the loop's)."""
+    import statistics
+
+    import torch
+    from repro_torch.launch.train import train_loop
+    from repro_torch.train import TrainHParams
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    dev = torch.device("cuda", 0)
+    rec = {"step_ms": [], "gc": [], "card": []}
+    last = [GC_CLOCK.read()]
+
+    def on_step(step, r):
+        rec["step_ms"].append(r["seconds"] * 1e3)
+        rec["gc"].append(GC_CLOCK.since(last[0]))
+        rec["card"].append(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, check=True).stdout.strip())
+        last[0] = GC_CLOCK.read()
+
+    train_loop(arch, full=True, seed=SEED, device=dev, hp=TrainHParams(),
+               batch=TRAIN_FULL["batch"], seq=TRAIN_FULL["seq"], steps=steps,
+               log_every=10**9, on_step=on_step)
+    print(json.dumps({"arch": arch, "batch": TRAIN_FULL["batch"],
+                      "seq": TRAIN_FULL["seq"], **rec,
+                      "warm_median_ms": statistics.median(rec["step_ms"][1:]),
+                      "peak_memory": torch.cuda.max_memory_allocated(dev),
+                      "checkout": str(ROOT)}), flush=True)
+
+
+def _vs_fp32_formula(what, got, plain, exact, names, rtol) -> dict:
+    """A bf16 backward kernel's gradients ``got`` held, each, to its
+    formula run on the same bf16 values (``plain``, its plain version)
+    and in fp32 (``exact``): finite, within ``rtol``·max|g| of the bf16
+    formula, and within 2 × the bf16 formula's own error against the fp32
+    one + 1e-3·max|g|, no less accurate than its plain version. Returns
+    {name: the errors, each / max|g| of the fp32 formula}."""
+    import torch
     errs = {}
-    for name, g, f, e in zip(("dq", "dk", "dv"), got, plain, exact):
+    for name, g, f, e in zip(names, got, plain, exact):
         g, f = g.float(), f.float()
         mx = float(e.abs().max())
         e_p = float((g - f).abs().max())
         e_k = float((g - e).abs().max())
         e_f = float((f - e).abs().max())
-        tol = BWD_RTOL["bfloat16"] * float(f.abs().max())
-        require(e_p <= tol, f"{what} {name}: kernel {e_p} from the bf16 "
-                f"formula > {tol}")
+        tol = rtol * float(f.abs().max())
+        require(bool(torch.isfinite(g).all()) and e_p <= tol, f"{what} "
+                f"{name}: kernel {e_p} from the bf16 formula > {tol}")
         require(e_k <= 2 * e_f + 1e-3 * mx, f"{what} {name}: kernel {e_k} "
                 f"against the fp32 formula, > 2 × the bf16 formula's {e_f} "
                 f"+ 1e-3·{mx}")
@@ -1752,16 +1865,39 @@ def _bwd_vs_fp32_formula(what, got, inputs, causal) -> dict:
     return errs
 
 
+def _flash_bwd_vs_fp32_formula(what, got, inputs, causal) -> dict:
+    """``_vs_fp32_formula`` for the flash backward kernel's dq, dk, dv on
+    bf16 ``inputs`` (q, k, v, dO), within BWD_RTOL of the bf16 formula."""
+    from repro_torch.kernels.flash_attention.backward import (
+        flash_attention_backward)
+    return _vs_fp32_formula(
+        what, got, flash_attention_backward(*inputs, causal),
+        flash_attention_backward(*(t.float() for t in inputs), causal),
+        ("dq", "dk", "dv"), BWD_RTOL["bfloat16"])
+
+
+def _ssd_bwd_vs_fp32_formula(what, got, inputs, chunk) -> dict:
+    """``_vs_fp32_formula`` for the SSD backward kernel's dx, ddt, dA,
+    dB_, dC on bf16 ``inputs`` (x, dt, A, B_, C, dy), its formula the VJP
+    of the chunked form, within BWD_SSD_RTOL of the bf16 formula."""
+    from repro_torch.kernels.ssd_scan.backward import ssd_scan_backward
+    *ins, dy = inputs
+    return _vs_fp32_formula(
+        what, got, ssd_scan_backward(*ins, chunk, dy),
+        ssd_scan_backward(*(t.float() for t in ins), chunk, dy.float()),
+        ("dx", "ddt", "dA", "dB_", "dC"), BWD_SSD_RTOL["bfloat16"])
+
+
 def backward_checks(dev, gen) -> None:
     """(b) of ``train_path``, the checks: the flash and SSD backwards on
     the card (autograd through the ops, whose forward is the kernel)
     against autograd through the plain versions and against the formula
-    on the CPU, at BWD_FLASH_CASES and BWD_SSD_CASES, bf16 and fp32. The
-    flash backward in bf16 is the kernel, launched exactly once a case
-    (never in fp32); each of its gradients, against the formula run in
-    fp32 on the same values, is within 2 × the bf16 formula's own error
-    against it + 1e-3·max|g|: no less accurate than its plain version. A
-    rerun is bit-identical, and rows that see no key get dq = 0."""
+    on the CPU, at BWD_FLASH_CASES and BWD_SSD_CASES, bf16 and fp32. Each
+    backward in bf16 is its kernel, launched exactly once a case (never
+    in fp32); each of its gradients, against the formula run in fp32 on
+    the same values, is within 2 × the bf16 formula's own error against
+    it + 1e-3·max|g|: no less accurate than its plain version. A rerun is
+    bit-identical, and flash rows that see no key get dq = 0."""
     import torch
     from repro_torch.kernels.flash_attention import (attention_reference,
                                                      flash_attention)
@@ -1771,6 +1907,7 @@ def backward_checks(dev, gen) -> None:
         flash_attention_backward_wgmma)
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_reference
     from repro_torch.kernels.ssd_scan.backward import ssd_scan_backward
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_backward_wgmma
 
     def grads(q, k, v, do, causal):
         ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
@@ -1805,30 +1942,44 @@ def backward_checks(dev, gen) -> None:
             e_cpu = _grads_close(got, cpu, BWD_RTOL[dt], f"{name} vs CPU")
             fields = {}
             if dt == "bfloat16":
-                fields["vs_fp32_formula"] = _bwd_vs_fp32_formula(
+                fields["vs_fp32_formula"] = _flash_bwd_vs_fp32_formula(
                     name, got, (q, k, v, do), causal)
             emit("train", case=name, backward_kernel_launches=launched,
                  vs_plain_autograd=e_plain, vs_cpu_formula=e_cpu, **fields,
                  tolerance=f"{BWD_RTOL[dt]} * max|g| per gradient")
+    def ssd_grads(args, dy, chunk):
+        ins = [t.clone().requires_grad_(True) for t in args]
+        ssd_scan(*ins, chunk=chunk).backward(dy)
+        return [t.grad for t in ins]
+
     for case in BWD_SSD_CASES:
         B, L, H, P, G, N, chunk = case
         for dt in ("float32", "bfloat16"):
+            name = f"ssd backward {list(case)} {dt}"
             args = ssd_inputs(dev, gen, B, L, H, P, G, N, dt)
             dy = torch.randn(args[0].shape, device=dev,
                              generator=gen).to(args[0].dtype)
-            ins = [t.clone().requires_grad_(True) for t in args]
-            ssd_scan(*ins, chunk=chunk).backward(dy)
-            got = [t.grad for t in ins]
+            before = ssd_scan_backward_wgmma.launches
+            got = ssd_grads(args, dy, chunk)
+            launched = ssd_scan_backward_wgmma.launches - before
+            require(launched == int(dt == "bfloat16"), f"{name}: "
+                    f"ssd_scan_backward_wgmma launches {launched}")
+            again = ssd_grads(args, dy, chunk)
+            torch.cuda.synchronize()
+            require(all(torch.equal(bits(a), bits(b))
+                        for a, b in zip(got, again)), f"{name}: rerun differs")
             ref_in = [t.clone().requires_grad_(True) for t in args]
             ssd_scan_reference(*ref_in).backward(dy)
             e_plain = _grads_close(got, [t.grad for t in ref_in],
-                                   BWD_SSD_RTOL[dt],
-                                   f"ssd backward {case} {dt}")
+                                   BWD_SSD_RTOL[dt], name)
             cpu = ssd_scan_backward(*(t.cpu() for t in args), chunk, dy.cpu())
-            e_cpu = _grads_close(got, cpu, BWD_SSD_RTOL[dt],
-                                 f"ssd backward {case} {dt} vs CPU")
-            emit("train", case=f"ssd backward {list(case)} {dt}",
-                 vs_plain_autograd=e_plain, vs_cpu_formula=e_cpu,
+            e_cpu = _grads_close(got, cpu, BWD_SSD_RTOL[dt], f"{name} vs CPU")
+            fields = {}
+            if dt == "bfloat16":
+                fields["vs_fp32_formula"] = _ssd_bwd_vs_fp32_formula(
+                    name, got, (*args, dy), chunk)
+            emit("train", case=name, backward_kernel_launches=launched,
+                 vs_plain_autograd=e_plain, vs_cpu_formula=e_cpu, **fields,
                  tolerance=f"{BWD_SSD_RTOL[dt]} * max|g| per gradient")
 
 
@@ -1915,12 +2066,25 @@ BWD_TIMED_ARCHS = ("qwen3-1.7b", "granite-moe-1b-a400m")
 # models train by XLA's autodiff of chunked_attention, whose gradient the
 # backward kernel computes, so its rows name that function
 FLASH_BWD_REPLACES = "src/repro/models/layers.py:132"
+# the same for the SSD backward kernel: mamba2 trains by XLA's autodiff of
+# ssd_chunked
+SSD_BWD_REPLACES = "src/repro/models/ssm.py:85"
+# a path's backward kernel by whether it is attention, and each one's
+# module, source and what it replaces, for the kernels line
+BACKWARD_KERNEL = {True: "flash_attention_backward_wgmma",
+                   False: "ssd_scan_backward_wgmma"}
+BACKWARD_ROW = {
+    "flash_attention_backward_wgmma": ("flash_attention",
+                                       "flash_attention_bwd_sm90",
+                                       FLASH_BWD_REPLACES),
+    "ssd_scan_backward_wgmma": ("ssd_scan", "ssd_scan_bwd_sm90",
+                                SSD_BWD_REPLACES)}
 
 
 def time_flash_backward(dev, gen, cfg, smi0) -> dict:
     """The flash backward kernel at ``cfg``'s full-width training shape
     (TRAIN_FULL's batch and seq, causal, bf16), first held to the formula
-    in bf16 and in fp32 on the same values (``_bwd_vs_fp32_formula``),
+    in bf16 and in fp32 on the same values (``_flash_bwd_vs_fp32_formula``),
     then timed: the kernel as the median of 5 batches of 20 launches after
     5 warm-ups with their spread, the formula (its plain version) and
     SDPA's backward by CUDA events, beside the bound (q, k, v and dO read
@@ -1939,7 +2103,7 @@ def time_flash_backward(dev, gen, cfg, smi0) -> dict:
     q, k, v = flash_inputs(dev, gen, B, S, S, cfg.n_heads, cfg.n_kv_heads,
                            cfg.head_dim, "bfloat16")
     do = torch.randn(q.shape, device=dev, generator=gen).to(q.dtype)
-    errs = _bwd_vs_fp32_formula(f"flash backward {cfg.name} train",
+    errs = _flash_bwd_vs_fp32_formula(f"flash backward {cfg.name} train",
                                 flash_attention_backward_wgmma(
                                     q, k, v, do, True), (q, k, v, do), True)
     torch.cuda.empty_cache()
@@ -1971,25 +2135,77 @@ def time_flash_backward(dev, gen, cfg, smi0) -> dict:
     return t
 
 
+def time_ssd_backward(dev, gen, cfg, smi0) -> dict:
+    """The SSD backward kernel at ``cfg``'s full-width training shape
+    (TRAIN_FULL's batch and seq, bf16), first held to the formula in bf16
+    and in fp32 on the same values (``_ssd_bwd_vs_fp32_formula``), then
+    timed: the kernel as the median of 5 batches of 20 launches after 5
+    warm-ups with their spread, the formula (its plain version) and the
+    forward kernel by CUDA events, beside the bound (x, dt, A, B, C and
+    dy read once, their gradients written once; the recurrence's least
+    work twice over, its adjoint running each product back once); no
+    single PyTorch call computes it. ``max_abs_err`` is the kernel's
+    largest difference from the bf16 formula. Its passes' device ms
+    inside a step come from ``trace_train``, a process of its own. Emits
+    a ``times`` line; returns the timings."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.kernels.ssd_scan.backward import ssd_scan_backward
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_backward_wgmma
+
+    B, S = TRAIN_FULL["batch"], TRAIN_FULL["seq"]
+    s = cfg.ssm
+    H = s.n_heads(cfg.d_model)
+    args = ssd_inputs(dev, gen, B, S, H, s.head_dim, s.n_groups, s.d_state,
+                      "bfloat16")
+    dy = torch.randn(args[0].shape, device=dev, generator=gen).to(
+        args[0].dtype)
+    errs = _ssd_bwd_vs_fp32_formula(
+        f"ssd backward {cfg.name} train", ssd_scan_backward_wgmma(*args, dy),
+        (*args, dy), s.chunk_size)
+    torch.cuda.empty_cache()
+    bwd_bytes = 2 * sum(t.numel() * t.element_size() for t in args) \
+        + dy.numel() * dy.element_size()
+    t = {**batches(lambda: ssd_scan_backward_wgmma(*args, dy), "ms"),
+         "plain_ms": cuda_ms(lambda: ssd_scan_backward(
+             *args, s.chunk_size, dy), 3, 1),
+         "library_ms": None,
+         "forward_kernel_ms": cuda_ms(lambda: ssd_scan(
+             *args, chunk=s.chunk_size), 20, 3),
+         **bound(bwd_bytes, 2 * ssd_flops(B, S, H, s.head_dim, s.d_state),
+                 "bfloat16"),
+         "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+         "vs_formula": errs}
+    emit("times", case=f"ssd backward {cfg.name} train",
+         shape=[B, S, H, s.head_dim], d_state=s.d_state, groups=s.n_groups,
+         chunk=s.chunk_size, dtype="bfloat16",
+         kernel="ssd_scan_backward_wgmma", nvidia_smi=smi0, **t)
+    del args, dy
+    torch.cuda.empty_cache()
+    return t
+
+
 def train_path(dev, gen, smi0) -> list:
     """The LM training path on the card:
-      (a) flash at head dim 16 (``flash_attention_d16``, the CUDA-core
-          kernel both flash sources build for it) against its plain
-          version, bf16 and fp32, causal and not, GQA, Sq != Skv;
+      (a) flash at head dim 16 against its plain version, bf16 on the
+          wgmma kernel (``flash_attention_wgmma``, 32-column tiles zero
+          past d) and fp32 on the CUDA-core one (``flash_attention_d16``),
+          causal and not, GQA, Sq != Skv;
       (b) the flash and SSD backwards on the card (autograd through the
           ops, whose forward is the kernel; flash's backward in bf16 the
-          kernel, in fp32 and the SSD's the formula) against autograd
+          kernel, in fp32 the formula) against autograd
           through the plain versions, and against the formula on the CPU,
           bf16 and fp32, flash at d 16 to 128 (``backward_checks``); then
           the flash backward kernel timed at the full-width training
-          shapes beside its formula and SDPA's backward, the SSD's formula
-          alone, by CUDA events;
+          shapes beside its formula and SDPA's backward, the SSD backward
+          kernel at mamba2-1.3b's beside its formula and the forward
+          kernel, each held to its formula in fp32 there first;
       (c) ``train_loop`` at full width (qwen3-1.7b, mamba2-1.3b; batch 2,
           seq 4,096, 3 steps, TrainHParams' defaults: remat "full", bf16):
           per step ms (host clock after a device sync), tokens/s, peak
           memory, loss and grad norm, all finite; the kernels' launches
           per step, exactly 2 per path layer (forward and recompute), the
-          flash backward kernel 1 per attention layer, and nothing else;
+          path's backward kernel 1 per path layer, and nothing else;
           the kernels' device ms inside a step (a traced step at depth
           TRAIN_PLAIN_LAYERS in a child process);
       (d) depth cut to TRAIN_PLAIN_LAYERS at full width: one fp32 train
@@ -2003,8 +2219,8 @@ def train_path(dev, gen, smi0) -> list:
           ``serve_demo``, ``measure_step_time`` for schedule_run's three
           archs, ``schedule_run --jobs 3 --steps 2`` (its plan line equal
           to the CPU's).
-    Returns the ``kernels`` rows of the path and the flash backward's
-    timings by arch (``time_flash_backward``)."""
+    Returns the ``kernels`` rows of the path and the backward kernels'
+    timings by arch (``time_flash_backward``, ``time_ssd_backward``)."""
     import contextlib
     import io
 
@@ -2014,9 +2230,9 @@ def train_path(dev, gen, smi0) -> list:
     from repro_torch.core.emulator import measure_step_time
     from repro_torch.kernels.flash_attention import (attention_reference,
                                                      flash_attention)
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_d16
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_d16, flash_attention_wgmma)
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_reference
-    from repro_torch.kernels.ssd_scan.backward import ssd_scan_backward
     from repro_torch.kernels.sweeps import (FLASH_TOL,
                                             FULL_FLASH_BF16_ROW_RTOL,
                                             FULL_SSD_RTOL)
@@ -2028,20 +2244,24 @@ def train_path(dev, gen, smi0) -> list:
     torch.backends.cuda.matmul.allow_tf32 = False
     rows = []
 
-    # (a) flash at head dim 16 against its plain version
+    # (a) flash at head dim 16 against its plain version: bf16 on the
+    # wgmma kernel, fp32 on the CUDA-core one
     d16_err = {}
     for B, Sq, Skv, H, KV, d, causal in FLASH_D16_CASES:
         for dt in ("bfloat16", "float32"):
             q, k, v = flash_inputs(dev, gen, B, Sq, Skv, H, KV, d, dt)
-            before = flash_attention_d16.launches
+            before = (flash_attention_wgmma.launches,
+                      flash_attention_d16.launches)
             out = flash_attention(q, k, v, causal=causal)
             again = flash_attention(q, k, v, causal=causal)
             ref = attention_reference(q, k, v, causal=causal)
             torch.cuda.synchronize()
             name = f"flash_d16[{B},{Sq},{Skv},{H},{KV},{d}] causal={causal} {dt}"
-            require(flash_attention_d16.launches - before == 2,
-                    f"{name}: flash_attention_d16 launches "
-                    f"{flash_attention_d16.launches - before}")
+            went = (flash_attention_wgmma.launches - before[0],
+                    flash_attention_d16.launches - before[1])
+            require(went == ((2, 0) if dt == "bfloat16" else (0, 2)),
+                    f"{name}: (flash_attention_wgmma, flash_attention_d16) "
+                    f"launches {went}")
             require(torch.equal(bits(out), bits(again)), f"{name}: rerun "
                     "differs")
             err = float((out.float() - ref.float()).abs().max())
@@ -2055,36 +2275,13 @@ def train_path(dev, gen, smi0) -> list:
     # (b) the backwards on the card
     backward_checks(dev, gen)
 
-    # the backward kernel timed at the full-width training shapes (bf16)
-    # beside its plain version, the formula, and SDPA's backward
+    # the backward kernels timed at the full-width training shapes (bf16)
+    # beside their plain versions, the formulas (and SDPA's backward)
     B, S = TRAIN_FULL["batch"], TRAIN_FULL["seq"]
-    mamba = get_arch("mamba2-1.3b")
     bwd_times = {arch: time_flash_backward(dev, gen, get_arch(arch), smi0)
                  for arch in BWD_TIMED_ARCHS}
-    s = mamba.ssm
-    args = ssd_inputs(dev, gen, B, S, s.n_heads(mamba.d_model), s.head_dim,
-                      s.n_groups, s.d_state, "bfloat16")
-    dy = torch.randn(args[0].shape, device=dev, generator=gen).to(
-        args[0].dtype)
-    # the bound: x, dt, A, B, C and dy read once, their gradients (dy's
-    # excepted) written once; the recurrence's least work twice over (its
-    # adjoint runs each product back once)
-    bwd_bytes = 2 * sum(t.numel() * t.element_size() for t in args) \
-        + dy.numel() * dy.element_size()
-    ssd_bwd = {**bound(bwd_bytes, 2 * ssd_flops(
-                   B, S, s.n_heads(mamba.d_model), s.head_dim, s.d_state),
-                   "bfloat16"),
-               "ms": cuda_ms(lambda: ssd_scan_backward(
-                   *args, s.chunk_size, dy), 3, 1),
-               "library_ms": None,
-               "forward_kernel_ms": cuda_ms(lambda: ssd_scan(
-                   *args, chunk=s.chunk_size), 20, 3)}
-    emit("times", case="ssd backward mamba2-1.3b train",
-         shape=[B, S, s.n_heads(mamba.d_model), s.head_dim],
-         d_state=s.d_state, chunk=s.chunk_size, dtype="bfloat16",
-         nvidia_smi=smi0, **ssd_bwd)
-    del args, dy
-    torch.cuda.empty_cache()
+    bwd_times["mamba2-1.3b"] = time_ssd_backward(
+        dev, gen, get_arch("mamba2-1.3b"), smi0)
 
     # (c) train_loop at full width
     per_step = {}
@@ -2120,8 +2317,7 @@ def train_path(dev, gen, smi0) -> list:
         want = {k: 0 for k in counters}
         want[kernel] = want["flash_attention" if attn else "ssd_scan"] \
             = 2 * n_path
-        if attn:
-            want["flash_attention_backward_wgmma"] = n_path
+        want[BACKWARD_KERNEL[attn]] = n_path
         for rec in steps:
             emit("train", case="full_width_step", arch=arch, **rec,
                  nvidia_smi=smi0)
@@ -2142,19 +2338,16 @@ def train_path(dev, gen, smi0) -> list:
         del state
         torch.cuda.empty_cache()
 
-        child = subprocess.run(
-            [sys.executable, str(Path(__file__).resolve()), "--trace-train",
-             arch], capture_output=True, text=True, timeout=TRACE_TIMEOUT_S)
-        require(child.returncode == 0, f"{arch} train-step trace: exit "
-                f"{child.returncode}\n{child.stderr[-3000:]}")
-        inside = json.loads(child.stdout.splitlines()[-1])
+        lines = trace_child(f"{arch} train-step trace", "--trace-train",
+                            arch)
+        inside = json.loads(lines[-1])
         emit("train", case="in_step_device_ms", arch=arch, dtype="bfloat16",
              layers=TRAIN_PLAIN_LAYERS, batch=TRAIN_FULL["batch"],
              seq=TRAIN_FULL["seq"], kernels=inside,
              device_ms_per_step_per_layer=sum(
                  v["ms_per_launch"] * v["launches"] for v in inside.values())
              / TRAIN_PLAIN_LAYERS,
-             profiler_retries=len(child.stdout.splitlines()) - 1,
+             profiler_retries=len(lines) - 1,
              nvidia_smi=smi0)
 
     # (d) the card against the CPU at depth TRAIN_PLAIN_LAYERS, fp32
@@ -2166,14 +2359,18 @@ def train_path(dev, gen, smi0) -> list:
     with contextlib.redirect_stdout(printed):
         _, losses = train_loop("smollm-135m", steps=TRAIN_DEFAULT_STEPS,
                                log_every=10**9)
-    d16_launches = counters["flash_attention_d16"].launches
+    # bf16 at d 16: the wgmma forward and the backward kernel, once a
+    # layer a step
+    d16_launches = counters["flash_attention_wgmma"].launches
     d16_bwd_launches = counters["flash_attention_backward_wgmma"].launches
     n_layers = get_arch("smollm-135m").reduced().n_layers
     require(d16_launches == TRAIN_DEFAULT_STEPS * n_layers
-            and d16_bwd_launches == TRAIN_DEFAULT_STEPS * n_layers,
-            f"reduced train_loop: flash_attention_d16 launches "
+            and d16_bwd_launches == TRAIN_DEFAULT_STEPS * n_layers
+            and counters["flash_attention_d16"].launches == 0,
+            f"reduced train_loop: flash_attention_wgmma launches "
             f"{d16_launches}, flash_attention_backward_wgmma "
-            f"{d16_bwd_launches}")
+            f"{d16_bwd_launches}, flash_attention_d16 "
+            f"{counters['flash_attention_d16'].launches}")
     require(all(math.isfinite(x) for x in losses)
             and np.mean(losses[-5:]) < np.mean(losses[:5]),
             f"reduced train_loop: losses {losses}")
@@ -2205,7 +2402,7 @@ def train_path(dev, gen, smi0) -> list:
     require(sum(ln.startswith("  job ") and "ran 2 real steps" in ln
                 for ln in lines) == 3, f"schedule_run: {lines}")
     emit("train", case="reduced_defaults", train_loop_losses=losses,
-         flash_attention_d16_launches=d16_launches,
+         flash_attention_wgmma_d16_launches=d16_launches,
          flash_attention_backward_wgmma_d16_launches=d16_bwd_launches,
          fp32_train_loop_losses=losses32,
          fp32_flash_attention_d16_launches=d16_launches32,
@@ -2213,14 +2410,22 @@ def train_path(dev, gen, smi0) -> list:
                         "decode_per_token": rep.decode_ms_per_token},
          measure_step_time_s=step_s, schedule_run=lines, nvidia_smi=smi0)
 
-    # the kernels line: d 16 at the reduced train_loop's shape; the
-    # training path's bf16 kernels at the full-width training shapes
+    # the kernels line: d 16 at the reduced train_loop's shape (bf16: the
+    # wgmma kernel; fp32: the CUDA-core kernel) beside SDPA; the training
+    # path's bf16 kernels at the full-width training shapes. The device
+    # times come from a child process: every torch.profiler trace this
+    # process takes leaves later ones likelier to drop device events (the
+    # times phase's traces must still see them)
+    d16_device = json.loads(trace_child("d 16 trace", "--trace-d16")[-1])
     for dt in ("bfloat16", "float32"):
         shp = FLASH_D16_CASES[0]
-        t = time_flash(dev, gen, shp, dt, profile=False)
-        emit("times", case=f"flash_attention_d16 smollm-135m reduced train "
-             f"{dt}", shape=list(shp), dtype=dt, nvidia_smi=smi0, **t)
-        rows.append((f"flash_attention.flash_attention_d16 {dt} smollm-135m "
+        t = time_flash(dev, gen, shp, dt)
+        kernel = "flash_attention_wgmma" if dt == "bfloat16" \
+            else "flash_attention_d16"
+        t.update(kernel=kernel, **d16_device[dt])
+        emit("times", case=f"flash d 16 smollm-135m reduced train {dt}",
+             shape=list(shp), dtype=dt, nvidia_smi=smi0, **t)
+        rows.append((f"flash_attention.{kernel} d16 {dt} smollm-135m "
                      "reduced train_loop", "flash_attention_sm90"
                      if dt == "bfloat16" else "flash_attention_sm90_f32",
                      "src/repro/kernels/flash_attention/kernel.py:87",
@@ -2240,7 +2445,7 @@ def train_path(dev, gen, smi0) -> list:
                           * ref.float().abs().amax(-1)).all()),
                     f"{kernel} at the training shape: max |err| {err}")
             del q, k, v, out, ref, diff
-            t = time_flash(dev, gen, shp, "bfloat16", profile=False)
+            t = time_flash(dev, gen, shp, "bfloat16")
             row = (f"flash_attention.{kernel} {arch} train step",
                    "flash_attention_sm90",
                    "src/repro/kernels/flash_attention/kernel.py:87")
@@ -2256,21 +2461,19 @@ def train_path(dev, gen, smi0) -> list:
                     * float(ref.float().abs().max()),
                     f"{kernel} at the training shape: max |err| {err}")
             del args, out, ref
-            t = time_ssd(dev, gen, shp, "bfloat16", profile=False,
-                         plain_reps=1)
+            t = time_ssd(dev, gen, shp, "bfloat16", plain_reps=1)
             row = (f"ssd_scan.{kernel} {arch} train step", "ssd_scan",
                    "src/repro/kernels/ssd_scan/kernel.py:71")
         emit("times", case=f"{kernel} {arch} train", shape=list(shp),
              dtype="bfloat16", launches=per * len(steps), nvidia_smi=smi0,
              **t)
         rows.append((*row, per * len(steps), err, t))
-        if cfg.ssm is None:
-            n_bwd = sum(r["launches"]["flash_attention_backward_wgmma"]
-                        for r in steps)
-            tb = bwd_times[arch]
-            rows.append((f"flash_attention.flash_attention_backward_wgmma "
-                         f"{arch} train step", "flash_attention_bwd_sm90",
-                         FLASH_BWD_REPLACES, n_bwd, tb["max_abs_err"], tb))
+        bk = BACKWARD_KERNEL[cfg.ssm is None]
+        mod, src, replaces = BACKWARD_ROW[bk]
+        n_bwd = sum(r["launches"][bk] for r in steps)
+        tb = bwd_times[arch]
+        rows.append((f"{mod}.{bk} {arch} train step", src, replaces, n_bwd,
+                     tb["max_abs_err"], tb))
     return rows, bwd_times
 
 
@@ -2411,8 +2614,7 @@ def dist_child() -> None:
             want = {k: 0 for k in zeroed_counters()}
             want[kernel] = want["flash_attention" if attn else "ssd_scan"] \
                 = 2 * n_path
-            if attn:
-                want["flash_attention_backward_wgmma"] = n_path
+            want[BACKWARD_KERNEL[attn]] = n_path
             n_moe = sum(k.endswith("moe") for k in cfg.layer_kinds())
             runs = {}
             for name, m in (("meshless", None), ("mesh", mesh)):
@@ -2490,8 +2692,9 @@ def dist_child() -> None:
             summary["archs"][arch] = {
                 "kernel": kernel, "launches": sum(
                     r["launches"][kernel] for r in runs["mesh"]["steps"]),
+                "backward_kernel": BACKWARD_KERNEL[attn],
                 "backward_launches": sum(
-                    r["launches"]["flash_attention_backward_wgmma"]
+                    r["launches"][BACKWARD_KERNEL[attn]]
                     for r in runs["mesh"]["steps"]),
                 "peak_memory": runs["meshless"]["peak_memory"],
                 "mesh_peak_memory": runs["mesh"]["peak_memory"]}
@@ -2560,7 +2763,7 @@ def dist_kernel_rows(dev, gen, smi0, summary, train_rows,
                           * ref.float().abs().amax(-1)).all()),
                     f"{kernel} at {arch}'s training shape: max |err| {err}")
             del q, k, v, out, ref, diff
-            t = time_flash(dev, gen, shp, "bfloat16", profile=False)
+            t = time_flash(dev, gen, shp, "bfloat16")
             emit("times", case=f"{kernel} {arch} train", shape=list(shp),
                  dtype="bfloat16", launches=rec["launches"],
                  nvidia_smi=smi0, **t)
@@ -2568,12 +2771,12 @@ def dist_kernel_rows(dev, gen, smi0, summary, train_rows,
             replaces = "src/repro/kernels/flash_attention/kernel.py:87"
         rows.append((f"{prefix} on a 1x1 NCCL mesh", src, replaces,
                      rec["launches"], err, t))
-        if rec["backward_launches"]:
-            tb = bwd_times[arch]
-            rows.append((f"flash_attention.flash_attention_backward_wgmma "
-                         f"{arch} train step on a 1x1 NCCL mesh",
-                         "flash_attention_bwd_sm90", FLASH_BWD_REPLACES,
-                         rec["backward_launches"], tb["max_abs_err"], tb))
+        bk = rec["backward_kernel"]
+        mod, src, replaces = BACKWARD_ROW[bk]
+        tb = bwd_times[arch]
+        rows.append((f"{mod}.{bk} {arch} train step on a 1x1 NCCL mesh",
+                     src, replaces, rec["backward_launches"],
+                     tb["max_abs_err"], tb))
     return rows
 
 
@@ -2669,12 +2872,11 @@ def cuda_ms(fn, reps=50, warm=3):
     return a.elapsed_time(b) / reps
 
 
-def time_flash(dev, gen, shape, dt, profile=True) -> dict:
+def time_flash(dev, gen, shape, dt) -> dict:
     """Flash attention's kernel, plain version and SDPA at ``shape`` (B,
     Sq, Skv, H, KV, d, causal) in ``dt`` by CUDA events, beside the bound;
     the kernel and SDPA as the median of 5 batches of 20 launches after 5
-    warm-ups, with the spread (max - min) of the batches; with ``profile``
-    each kernel's device time from torch.profiler."""
+    warm-ups, with the spread (max - min) of the batches."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import attention_reference
@@ -2695,9 +2897,6 @@ def time_flash(dev, gen, shape, dt, profile=True) -> dict:
              qt, kt, vt, is_causal=causal, enable_gqa=True), "library_ms"),
          **bound(nbytes, flops, dt), "flops": flops, "bytes": nbytes,
          "kernel": "wgmma" if dt == "bfloat16" else "3xtf32"}
-    if profile:
-        t["device_ms_by_kernel"] = kernel_device_ms(
-            lambda: flash_attention_bshd(q, k, v, causal=causal))
     return t
 
 
@@ -2710,8 +2909,7 @@ def ssd_flops(B, L, H, P, N) -> int:
     return 4 * N * P * B * L * H
 
 
-def time_ssd(dev, gen, shape, dt, return_state=False, profile=True,
-             plain_reps=2) -> dict:
+def time_ssd(dev, gen, shape, dt, return_state=False, plain_reps=2) -> dict:
     """The SSD kernel and its plain version at ``shape`` (B, L, H, P, G,
     N, chunk) in ``dt`` by CUDA events, beside the bound (the final state
     counted among the outputs with ``return_state``), as ``time_flash``;
@@ -2734,22 +2932,52 @@ def time_ssd(dev, gen, shape, dt, return_state=False, profile=True,
          **bound(nbytes, ssd_flops(B, L, H, P, N), dt),
          "flops": ssd_flops(B, L, H, P, N), "bytes": nbytes,
          "calibrator_flops": ssd_scan_flops(x.shape, Bm.shape, chunk)}
-    if profile:
-        t["device_ms_by_kernel"] = kernel_device_ms(
-            lambda: ssd_scan_blh(x, dtt, A, Bm, Cm))
     return t
+
+
+def trace_full() -> None:
+    """(Run as ``chip_smoke.py --trace-full``, by ``time_attention_and_ssd``.)
+    Flash attention and the SSD scan at full width (``full_widths``), bf16
+    and fp32, on inputs made from SEED, each kernel under torch.profiler
+    over 10 calls (``kernel_device_ms``); prints {"flash" or "ssd": {dtype:
+    device ms per call by kernel}} on its last line. A process of its own,
+    as ``trace_train``."""
+    import torch
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bshd
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_blh
+    from repro_torch.kernels.sweeps import full_widths
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    flash_full, ssd_full = full_widths()
+    out = {"flash": {}, "ssd": {}}
+    for dt in ("bfloat16", "float32"):
+        B, Sq, Skv, H, KV, d, causal = flash_full
+        q, k, v = flash_inputs(dev, gen, B, Sq, Skv, H, KV, d, dt)
+        out["flash"][dt] = kernel_device_ms(
+            lambda: flash_attention_bshd(q, k, v, causal=causal))
+        args = ssd_inputs(dev, gen, *ssd_full[:6], dt)
+        out["ssd"][dt] = kernel_device_ms(lambda: ssd_scan_blh(*args))
+        del q, k, v, args
+    print(json.dumps(out), flush=True)
 
 
 def time_attention_and_ssd(dev, gen, smi0) -> dict:
     """Kernel, plain version and library call at full width (see
-    ``time_flash`` and ``time_ssd``). Returns the timings by (kernel,
-    dtype)."""
+    ``time_flash`` and ``time_ssd``), with each kernel's device time from a
+    ``--trace-full`` child. Returns the timings by (kernel, dtype)."""
+    import torch
     from repro_torch.kernels.sweeps import full_widths
 
     flash_full, ssd_full = full_widths()
+    torch.cuda.empty_cache()
+    lines = trace_child("full-width trace", "--trace-full")
+    device = json.loads(lines[-1])
     timed = {}
     for dt in ("bfloat16", "float32"):
         t = timed[("flash", dt)] = time_flash(dev, gen, flash_full, dt)
+        t.update(device_ms_by_kernel=device["flash"][dt],
+                 profiler_retries=len(lines) - 1)
         B, Sq, Skv, H, KV, d, causal = flash_full
         emit("times", case="flash_attention qwen3-1.7b",
              shape=[[B, Sq, H, d], [B, Skv, KV, d]], dtype=dt, causal=causal,
@@ -2757,6 +2985,8 @@ def time_attention_and_ssd(dev, gen, smi0) -> dict:
              library="scaled_dot_product_attention(is_causal, enable_gqa)",
              **t)
         t = timed[("ssd", dt)] = time_ssd(dev, gen, ssd_full, dt)
+        t.update(device_ms_by_kernel=device["ssd"][dt],
+                 profiler_retries=len(lines) - 1)
         B, L, H, P, G, N, chunk = ssd_full
         emit("times", case="ssd_scan mamba2-1.3b", shape=[B, L, H, P],
              d_state=N, chunk=chunk, dtype=dt, nvidia_smi=smi0,
@@ -2806,7 +3036,7 @@ def main() -> None:
          libraries=[str(p.relative_to(ROOT)) for p in libs.values()],
          ptxas=ptxas)
     spills = {k: u for n in ("window_agg", "flash_attention_sm90_f32",
-                             "flash_attention_bwd_sm90")
+                             "flash_attention_bwd_sm90", "ssd_scan_bwd_sm90")
               for k, u in ptxas[n].items()
               if u["spill_stores"] or u["spill_loads"]}
     require(not spills, f"kernels that spill registers: {spills}")
@@ -3209,6 +3439,12 @@ if __name__ == "__main__":
         trace_prefill(sys.argv[2])
     elif sys.argv[1:2] == ["--trace-train"]:
         trace_train(sys.argv[2])
+    elif sys.argv[1:2] == ["--trace-d16"]:
+        trace_d16()
+    elif sys.argv[1:2] == ["--trace-full"]:
+        trace_full()
+    elif sys.argv[1:2] == ["--train-steps"]:
+        train_steps(sys.argv[2], int(sys.argv[3]))
     elif sys.argv[1:2] == ["--dist"]:
         dist_child()
     elif sys.argv[1:2] == ["--dryrun"]:

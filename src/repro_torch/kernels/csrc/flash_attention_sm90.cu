@@ -35,8 +35,9 @@
 //    a ring of 2 stages, each stage with an mbarrier pair (full: TMA bytes
 //    landed; empty: both consumer warpgroups are done with it), so the next
 //    tile's copy overlaps this tile's math. The tensor maps read
-//    [B, S, heads * d] in place (3-D: columns, rows, batch) with the 128-
-//    byte swizzle (64-byte at d = 32) that wgmma reads without conflicts.
+//    [B, S, heads, d] in place (4-D: columns, heads, rows, batch) with the
+//    128-byte swizzle (64-byte at 32 columns) that wgmma reads without
+//    conflicts.
 //  * S = Q K^T is a chain of wgmma m64n128k16 with both operands in shared
 //    memory, d the K-major dimension. The online softmax runs in
 //    registers with exp2f and log2(e) folded into the scale. P goes to
@@ -49,8 +50,12 @@
 //    causal tail does not leave SMs idle.
 //  * No atomics and a fixed order of every sum: reruns are bit-identical.
 //
-// At d = 16 (every reduced() configuration) the entry point launches the
-// CUDA-core kernel of flash_d16.cuh instead.
+// At d = 16 (every reduced() configuration) the tiles are 32 columns wide
+// and the kernel runs as at d = 32: each box of the 4-D maps is 32 columns
+// over the tensor's 16, and TMA's out-of-bounds fill zeroes the other 16
+// in shared memory (a 3-D map would read the next head's there). The zero
+// columns add exact zeros to Q K^T, the scale stays the caller's
+// 1 / sqrt(16), and the epilogue stores the 16 real columns of O.
 //
 // Plain C interface, loaded with ctypes. cuTensorMapEncodeTiled lives in
 // libcuda; the library looks it up at run time through the runtime's
@@ -63,7 +68,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "flash_d16.cuh"
 #include "sm90.cuh"
 #include "tma.cuh"
 
@@ -75,17 +79,19 @@ constexpr int kStages = 2;      // K/V ring depth
 constexpr int kConsumers = 2;   // consumer warpgroups of 64 query rows
 constexpr int kThreads = (kConsumers + 1) * 128;
 
-// the tiles of one head dim: each row of a tile is split into chunks of
-// one swizzle span (128 bytes, or 64 at d = 32), stored one after another
+// the tiles of one head dim: kDT columns (d, or 32 at d = 16), each row
+// split into chunks of one swizzle span (128 bytes, or 64 at 32 columns),
+// stored one after another
 template <int D>
 struct Cfg {
-  static constexpr int kSwBytes = D * 2 >= 128 ? 128 : D * 2;
+  static constexpr int kDT = D < 32 ? 32 : D;
+  static constexpr int kSwBytes = kDT * 2 >= 128 ? 128 : kDT * 2;
   static constexpr int kCW = kSwBytes / 2;          // columns per chunk
-  static constexpr int kChunks = D / kCW;
+  static constexpr int kChunks = kDT / kCW;
   static constexpr int kChunkQ = kBM * kSwBytes;    // bytes of a Q chunk
   static constexpr int kChunkKV = kBN * kSwBytes;   // bytes of a K/V chunk
-  static constexpr int kQBytes = kBM * D * 2;
-  static constexpr int kKVBytes = kBN * D * 2;
+  static constexpr int kQBytes = kBM * kDT * 2;
+  static constexpr int kKVBytes = kBN * kDT * 2;
   static constexpr uint32_t kLayout = kSwBytes == 128 ? 1 : 2;  // B128, B64
   // 1,024 bytes of slack to align the tiles, the tiles, 5 mbarriers
   static constexpr int kSmem = 1024 + kQBytes + 2 * kStages * kKVBytes + 64;
@@ -135,7 +141,7 @@ flash_forward_sm90(const __grid_constant__ CUtensorMap map_q,
       mbar_expect_tx(bar_q, C::kQBytes);
 #pragma unroll
       for (int c = 0; c < C::kChunks; ++c)
-        tma_load_3d(sQ + c * C::kChunkQ, &map_q, h * D + c * C::kCW, q0, b,
+        tma_load_4d(sQ + c * C::kChunkQ, &map_q, c * C::kCW, h, q0, b,
                     bar_q);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % kStages;
@@ -145,11 +151,10 @@ flash_forward_sm90(const __grid_constant__ CUtensorMap map_q,
         mbar_expect_tx(full, 2 * C::kKVBytes);
 #pragma unroll
         for (int c = 0; c < C::kChunks; ++c) {
-          const int col = kvh * D + c * C::kCW;
-          tma_load_3d(sK + s * C::kKVBytes + c * C::kChunkKV, &map_k, col,
-                      t * kBN, b, full);
-          tma_load_3d(sV + s * C::kKVBytes + c * C::kChunkKV, &map_v, col,
-                      t * kBN, b, full);
+          tma_load_4d(sK + s * C::kKVBytes + c * C::kChunkKV, &map_k,
+                      c * C::kCW, kvh, t * kBN, b, full);
+          tma_load_4d(sV + s * C::kKVBytes + c * C::kChunkKV, &map_v,
+                      c * C::kCW, kvh, t * kBN, b, full);
         }
       }
     }
@@ -165,9 +170,9 @@ flash_forward_sm90(const __grid_constant__ CUtensorMap map_q,
     const int my_end = causal ? min(Skv, first_row + 64 + q_offset) : Skv;
     const int my_tiles = my_end > 0 ? (my_end + kBN - 1) / kBN : 0;
 
-    float acc[D / 2];
+    float acc[C::kDT / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < C::kDT / 2; ++i) acc[i] = 0.f;
     float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
     const uint32_t qa = sQ + wg * 64 * C::kSwBytes;
 
@@ -176,12 +181,12 @@ flash_forward_sm90(const __grid_constant__ CUtensorMap map_q,
       const int s = t % kStages;
       mbar_wait(bar_full + 8 * s, (t / kStages) & 1);
       if (t < my_tiles) {
-        // S = Q K^T: 64 x 128, d deep
+        // S = Q K^T: 64 x 128, kDT deep
         float sc[64];
         const uint32_t kb = sK + s * C::kKVBytes;
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
+        for (int kk = 0; kk < C::kDT / 16; ++kk) {
           const int c = kk * 16 / C::kCW;
           const int off = (kk * 16 % C::kCW) * 2;
           wgmma_ss_m64n128(
@@ -246,7 +251,7 @@ flash_forward_sm90(const __grid_constant__ CUtensorMap map_q,
         l0 = l0 * al0 + rs0;   // a partial sum of this lane's columns
         l1 = l1 * al1 + rs1;
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
+        for (int j = 0; j < C::kDT / 8; ++j) {
           acc[4 * j] *= al0;
           acc[4 * j + 1] *= al0;
           acc[4 * j + 2] *= al1;
@@ -259,7 +264,7 @@ flash_forward_sm90(const __grid_constant__ CUtensorMap map_q,
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kBN / 16; ++kk)
-          wgmma_rs_tb<D>(acc, pa[kk],
+          wgmma_rs_tb<C::kDT>(acc, pa[kk],
                          make_desc(vb + kk * 16 * C::kSwBytes, C::kChunkKV,
                                    8 * C::kSwBytes, C::kLayout));
         wgmma_commit();
@@ -279,7 +284,7 @@ flash_forward_sm90(const __grid_constant__ CUtensorMap map_q,
     const int64_t row_stride = static_cast<int64_t>(H) * D;
     __nv_bfloat16* ob = o + (static_cast<int64_t>(b) * Sq * H + h) * D;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < D / 8; ++j) {   // the d real columns
       const int col = 8 * j + 2 * cq;
       if (row0 < Sq)
         *reinterpret_cast<__nv_bfloat162*>(ob + row0 * row_stride + col) =
@@ -293,22 +298,24 @@ flash_forward_sm90(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-// a 3-D map of a [B, S, heads * D] bf16 tensor (columns, rows, batch)
-// whose box is one chunk of kBN (= kBM) rows
+// a 4-D map of a [B, S, heads, D] bf16 tensor (d, heads, rows, batch)
+// whose box is one chunk of kBN (= kBM) rows of one head; at D = 16 the
+// box is 32 columns wide and TMA fills the 16 past the tensor with zeros
 template <int D>
 int make_map(CUtensorMap* map, const void* ptr, int64_t B, int64_t S,
              int64_t heads) {
   using C = Cfg<D>;
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
-  const cuuint64_t dims[3] = {(cuuint64_t)(heads * D), (cuuint64_t)S,
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S,
                               (cuuint64_t)B};
-  const cuuint64_t strides[2] = {(cuuint64_t)(heads * D * 2),
+  const cuuint64_t strides[3] = {(cuuint64_t)(D * 2),
+                                 (cuuint64_t)(heads * D * 2),
                                  (cuuint64_t)(S * heads * D * 2)};
-  const cuuint32_t box[3] = {(cuuint32_t)C::kCW, (cuuint32_t)kBN, 1};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)C::kCW, 1, (cuuint32_t)kBN, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
       strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
       C::kSwBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                          : CU_TENSOR_MAP_SWIZZLE_64B,
@@ -345,9 +352,8 @@ extern "C" {
 int flash_attention_sm90_query_tile() { return kBM; }
 
 // q, o: [B, Sq, H, d]; k, v: [B, Skv, KV, d]; all contiguous bf16, 16-byte
-// aligned; d in {16, 32, 64, 128} (d = 16 on the CUDA cores,
-// flash_d16.cuh); H a multiple of KV; 1 <= Sq, Skv < 2^31;
-// ceil(Sq / 128) <= 65535. scale multiplies q . k.
+// aligned; d in {16, 32, 64, 128}; H a multiple of KV; 1 <= Sq, Skv <
+// 2^31; ceil(Sq / 128) <= 65535. scale multiplies q . k.
 int flash_attention_sm90_forward(const void* q, const void* k, const void* v,
                                  void* o, int64_t B, int64_t H, int64_t KV,
                                  int64_t Sq, int64_t Skv, int64_t d,
@@ -355,8 +361,7 @@ int flash_attention_sm90_forward(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 16:
-      return d16::launch_d16<__nv_bfloat16>(q, k, v, o, B, H, KV, Sq, Skv,
-                                            causal, scale, s);
+      return launch<16>(q, k, v, o, B, H, KV, Sq, Skv, causal, scale, s);
     case 32:
       return launch<32>(q, k, v, o, B, H, KV, Sq, Skv, causal, scale, s);
     case 64:

@@ -1,6 +1,7 @@
-// Flash attention at head dim 16 on the CUDA cores, for both element
-// types: flash_attention_sm90.cu launches it for bf16 and
-// flash_attention_sm90_f32.cu for float32 when d = 16.
+// Flash attention at head dim 16 on the CUDA cores, in float32:
+// flash_attention_sm90_f32.cu launches it when d = 16 (bf16 d = 16 runs
+// on flash_attention_sm90.cu's wgmma kernel, 32-column tiles whose 16
+// columns past d TMA fills with zeros).
 //
 // Replaces the TPU Pallas kernel flash_attention_bhsd / _flash_kernel of
 // the JAX package (src/repro/kernels/flash_attention/kernel.py:87, its
@@ -10,9 +11,8 @@
 // index, the right-aligned causal mask (query i sees key j <= i + Skv -
 // Sq), keys past Skv masked and a row that sees no key giving 0.
 //
-// Why not wgmma: a 16-wide row is 32 bytes in bf16 and 64 in fp32, so the
-// tiles would need TMA's 32- and 64-byte swizzles and the matching wgmma
-// descriptors, for configurations that are small by construction. One
+// Why not wgmma in fp32: the 3xTF32 kernel's pre-pass and split products
+// cost more than this kernel at the reduced configs' shapes, where one
 // query row per thread on the CUDA cores is simple and exact in fp32.
 //
 // What bounds it: operations, 4 * 16 flops per kept (query, key) pair on
@@ -30,7 +30,6 @@
 // are bit-identical.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -41,13 +40,7 @@ constexpr int kD16Rows = 128;   // queries (threads) per CTA
 constexpr int kD16Keys = 64;    // keys per shared-memory tile
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void from_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void from_f32(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 // grid (B * H, ceil(Sq / kD16Rows)), block kD16Rows
 template <typename T>

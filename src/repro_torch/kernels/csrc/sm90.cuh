@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels
 // (flash_attention_sm90.cu, flash_attention_sm90_f32.cu,
-// flash_attention_bwd_sm90.cu, ssd_scan.cu):
+// flash_attention_bwd_sm90.cu, ssd_scan.cu, ssd_scan_bwd_sm90.cu):
 // shared-memory matrix descriptors for 128- and 64-byte swizzled tiles,
 // the wgmma fences and wrappers (bf16 and tf32), the tf32 split.
 //

@@ -15,6 +15,11 @@ parts of K and of V transposed into scratch that the wrapper allocates.
 They take CUDA tensors only and raise on what the kernels do not take;
 the plain version is ``ref.attention_reference``.
 
+Head dim 16 (every ``reduced()`` configuration's): bf16 runs on the wgmma
+kernel with 32-column tiles whose 16 columns past d TMA fills with zeros,
+float32 on the CUDA-core kernel of ``kernels/csrc/flash_d16.cuh``
+(``flash_attention_d16``).
+
 ``flash_attention_backward_wgmma(q, k, v, do, causal)`` launches the bf16
 backward, ``kernels/csrc/flash_attention_bwd_sm90.cu`` (two passes on
 wgmma fed by TMA: lse, D and dq, then dk and dv), at every head dim the
@@ -158,24 +163,20 @@ def flash_attention_3xtf32(q: torch.Tensor, k: torch.Tensor,
 def flash_attention_d16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True) -> torch.Tensor:
     """The CUDA-core kernel at head dim 16 (``csrc/flash_d16.cuh``) on
-    float32 or bf16 q, k, v as ``flash_attention_bshd`` takes them, from
-    the library of their type; it needs no scratch. Counted in
+    float32 q, k, v as ``flash_attention_bshd`` takes them (bf16 runs d 16
+    on ``flash_attention_wgmma``); it needs no scratch. Counted in
     ``flash_attention_d16.launches``."""
     if q.dim() != 4 or q.shape[3] != 16:
         raise ValueError(f"flash_attention_d16 takes head dim 16, got q "
                          f"{tuple(q.shape)}")
-    if q.dtype == torch.bfloat16:
-        _check(q, k, v, torch.bfloat16)
-        name, n_ptrs, tiles = "flash_attention_sm90", 4, ("query",)
-    else:
-        _check(q, k, v, torch.float32)
-        name, n_ptrs, tiles = "flash_attention_sm90_f32", 8, ("query", "key")
+    _check(q, k, v, torch.float32)
+    name = "flash_attention_sm90_f32"
     _check_grid(q, -(-q.shape[1] // 128))
-    lib = _library(name, n_ptrs, tiles)
+    lib = _library(name, 8, ("query", "key"))
     out = torch.empty_like(q)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
-    _launch(lib, name, "flash_attention_d16",
-            ptrs + (None,) * (n_ptrs - 4), q, k, causal)
+    _launch(lib, name, "flash_attention_d16", ptrs + (None,) * 4, q, k,
+            causal)
     flash_attention_d16.launches += 1
     return out
 
@@ -220,16 +221,17 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True) -> torch.Tensor:
     """q: [B, Sq, H, d]; k/v: [B, Skv, KV, d], contiguous CUDA tensors of
     one type (float32 or bfloat16), d ∈ {16, 32, 64, 128} → [B, Sq, H, d]
-    of q's type: d 16 through ``flash_attention_d16``, else bf16 through
-    ``flash_attention_wgmma`` and anything else through
+    of q's type: bf16 through ``flash_attention_wgmma``, float32 at d 16
+    through ``flash_attention_d16``, anything else through
     ``flash_attention_3xtf32``, which raises unless it is float32. Counted in
     ``flash_attention_bshd.launches`` as well as in the kernel's own
     counter."""
-    if q.dim() == 4 and q.shape[3] == 16:
+    if q.dtype == torch.bfloat16:
+        kernel = flash_attention_wgmma
+    elif q.dim() == 4 and q.shape[3] == 16:
         kernel = flash_attention_d16
     else:
-        kernel = (flash_attention_wgmma if q.dtype == torch.bfloat16
-                  else flash_attention_3xtf32)
+        kernel = flash_attention_3xtf32
     out = kernel(q, k, v, causal)
     flash_attention_bshd.launches += 1
     return out

@@ -4,18 +4,35 @@
 The JAX package has no backward kernel: its language models train by
 XLA's autodiff of the plain ``ssd_chunked`` (``models/ssm.py``). The
 port's forward is the hand-written SSD kernel on the card (the plain
-recurrence on the CPU); its backward takes the vector-Jacobian product
-of ``ssd_chunked`` below, a torch counterpart of the JAX package's
-function in its order of operations and types, recomputed under
-``torch.enable_grad()`` inside the backward: one code path on both
-devices, never the plain recurrence of ``ref.py``. The gradient covers
-x, dt, A, B_ and C.
+recurrence on the CPU). Its backward is the custom op
+``repro_torch::ssd_scan_backward``, with two routes by device and type:
+
+* bf16 on the card: the hand-written kernel
+  ``kernel.ssd_scan_backward_wgmma`` (``csrc/ssd_scan_bwd_sm90.cu``: the
+  forward's states recomputed, each chunk's state cotangent, a reverse
+  pass over the chunks, one adjoint per chunk on wgmma, the sums over
+  heads; no atomics);
+* everything else, fp32 on the card and every type on the CPU:
+  ``ssd_scan_backward`` below, the vector-Jacobian product of
+  ``ssd_chunked``, a torch counterpart of the JAX package's function in
+  its order of operations and types, recomputed and differentiated by
+  autograd inside the op; it is also the kernel's plain version. No
+  full-width path trains in fp32; on the card fp32 steps are the depth-2
+  card-against-CPU check.
+
+Neither route calls the plain recurrence of ``ref.py``, and nothing falls
+back from one route to the other. The gradient covers x, dt, A, B_ and
+C.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
+from torch._C import DispatchKey
+
+from repro_torch.kernels.ssd_scan.kernel import ssd_scan_backward_wgmma
 
 
 def _segsum(a: torch.Tensor) -> torch.Tensor:
@@ -86,15 +103,60 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return (y_diag + y_off).reshape(Bb, L, H, P), h
 
 
+@contextlib.contextmanager
+def _autograd_recording():
+    """Autograd records ops inside: a custom op's kernel runs with
+    autograd's dispatch keys excluded (``torch.library``), where the
+    formula below must still differentiate its forward. The caller's
+    exclusions are restored after. Not ``torch.func.vjp``: its wrapped
+    tensors fail inside a ``TorchDispatchMode`` such as the
+    ``FlopCounterMode`` that counts this op ("Cannot access storage of
+    TensorWrapper")."""
+    keys = (DispatchKey.AutogradFunctionality, DispatchKey.AutogradOther,
+            DispatchKey.AutogradNestedTensor)
+    was = [torch._C._dispatch_tls_is_dispatch_key_excluded(k) for k in keys]
+    for k in keys:
+        torch._C._dispatch_tls_set_dispatch_key_excluded(k, False)
+    try:
+        with torch.enable_grad():
+            yield
+    finally:
+        for k, w in zip(keys, was):
+            torch._C._dispatch_tls_set_dispatch_key_excluded(k, w)
+
+
 def ssd_scan_backward(x, dt, A, B_, C, chunk: int, dy: torch.Tensor):
     """The VJP of ``ssd_chunked``'s y at (x, dt, A, B_, C) for the
     cotangent dy → (dx, ddt, dA, dB_, dC) in their inputs' types."""
-    with torch.enable_grad():
+    with _autograd_recording():
         ins = [t.detach().requires_grad_(True) for t in (x, dt, A, B_, C)]
         y, _ = ssd_chunked(*ins, chunk)
         grads = torch.autograd.grad(y, ins, dy.to(y.dtype))
     return tuple(g.to(t.dtype).contiguous()
                  for g, t in zip(grads, (x, dt, A, B_, C)))
+
+
+@torch.library.custom_op("repro_torch::ssd_scan_backward", mutates_args=(),
+                         device_types="cpu")
+def _ssd_scan_backward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                       B_: torch.Tensor, C: torch.Tensor, chunk: int,
+                       dy: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                  torch.Tensor, torch.Tensor]:
+    return ssd_scan_backward(x, dt, A, B_, C, chunk, dy)
+
+
+@_ssd_scan_backward.register_kernel("cuda")
+def _(x, dt, A, B_, C, chunk, dy):
+    if x.dtype == torch.bfloat16:
+        return ssd_scan_backward_wgmma(x, dt, A, B_, C,
+                                       dy.to(x.dtype).contiguous())
+    return ssd_scan_backward(x, dt, A, B_, C, chunk, dy)
+
+
+@_ssd_scan_backward.register_fake
+def _(x, dt, A, B_, C, chunk, dy):
+    return tuple(torch.empty_like(t) for t in (x, dt, A, B_, C))
 
 
 def _setup_context(ctx, inputs, output):
@@ -134,14 +196,15 @@ def _local_placements(mesh, dy_pl, n_groups: int):
 def _backward(ctx, dy):
     x, dt, A, B_, C = ctx.saved_tensors
     from torch.distributed.tensor import DTensor
+    op = torch.ops.repro_torch.ssd_scan_backward
     if not isinstance(dy, DTensor):
-        return (*ssd_scan_backward(x, dt, A, B_, C, ctx.chunk, dy), None)
+        return (*op(x, dt, A, B_, C, ctx.chunk, dy), None)
     # on DTensors: each shard's VJP on its local tensors (local_map), the
     # shards laid out as the forward's output
     from torch.distributed.tensor.experimental import local_map
     mesh = dy.device_mesh
     dy_pl, ins, outs = _local_placements(mesh, dy.placements, B_.shape[2])
-    vjp = local_map(ssd_scan_backward, out_placements=tuple(outs),
+    vjp = local_map(op, out_placements=tuple(outs),
                     in_placements=(*ins, None, dy_pl), device_mesh=mesh,
                     redistribute_inputs=True)
     return (*vjp(x, dt, A, B_, C, ctx.chunk, dy), None)
@@ -159,7 +222,9 @@ def _backward_state(ctx, dy, dh):
 
 def register() -> None:
     """Gives ``repro_torch::ssd_scan`` and ``repro_torch::ssd_scan_state``
-    their autograd formulas."""
+    their gradient: the custom op ``repro_torch::ssd_scan_backward``, one
+    op to ``FlopCounterMode`` and to ``FakeTensorMode``, run per shard on
+    DTensors, the kernel or the formula inside by the routes above."""
     torch.library.register_autograd("repro_torch::ssd_scan", _backward,
                                     setup_context=_setup_context)
     torch.library.register_autograd("repro_torch::ssd_scan_state",

@@ -14,6 +14,12 @@ layout (x [B, L, H, P], dt [B, L, H], A [H], B_/C [B, L, G, N]) where it
 lies and reads B_ and C by group, so nothing is transposed, repeated or
 padded first. It takes CUDA tensors only and raises on what the kernel
 does not take; the plain version is ``ref.ssd_scan_reference``.
+
+``ssd_scan_backward_wgmma(x, dt, A, B_, C, dy)`` launches the bf16
+backward, ``kernels/csrc/ssd_scan_bwd_sm90.cu`` (the forward's states
+recomputed, each chunk's state cotangent, a reverse pass over the chunks,
+one adjoint per chunk on wgmma, the sums over heads), with its scratch
+allocated here; its plain version is ``backward.ssd_scan_backward``.
 """
 from __future__ import annotations
 
@@ -125,6 +131,64 @@ def ssd_scan_fma(x, dt, A, B_, C, return_state: bool = False):
     return out
 
 
+@functools.cache
+def _bwd_library() -> ctypes.CDLL:
+    lib = build.load("ssd_scan_bwd_sm90")
+    fn = lib.ssd_scan_bwd_sm90_backward
+    fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int64] * 6 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.ssd_scan_bwd_sm90_chunk.argtypes = []
+    lib.ssd_scan_bwd_sm90_chunk.restype = ctypes.c_int
+    lib.ssd_scan_bwd_sm90_error_string.argtypes = [ctypes.c_int]
+    lib.ssd_scan_bwd_sm90_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def ssd_scan_backward_wgmma(x, dt, A, B_, C, dy):
+    """The bf16 backward kernel on inputs as ``ssd_scan_blh`` takes them
+    (x, B_, C bf16) and the cotangent dy of y (x's shape, type and device,
+    contiguous) → (dx, ddt, dA, dB_, dC) in their inputs' types. dt and A
+    are widened to float32 here. The scratch, allocated here: the
+    recomputed states (4·B·H·ceil(L / chunk)·N·P bytes, and as many again
+    in bf16 for h_in and for dS) and the per-head float32 partials of dB_
+    and dC (8·B·L·H·N bytes). Every launch goes to the current stream of
+    x's device; reruns are bit-identical. Counted in
+    ``ssd_scan_backward_wgmma.launches``."""
+    _check(x, dt, A, B_, C, torch.bfloat16)
+    if (dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device
+            or not dy.is_contiguous()):
+        raise ValueError(f"dy must be a contiguous tensor of x's shape, type "
+                         f"and device, got {tuple(dy.shape)} {dy.dtype} on "
+                         f"{dy.device}")
+    Bb, L, H, P = x.shape
+    G, N = B_.shape[2], B_.shape[3]
+    dt32 = dt.float().contiguous()
+    A32 = A.float().contiguous()
+    lib = _bwd_library()
+    n_chunks = -(-L // lib.ssd_scan_bwd_sm90_chunk())
+    f32, dev = torch.float32, x.device
+    dx, dB, dC = (torch.empty_like(t) for t in (x, B_, C))
+    ddt = torch.empty((Bb, L, H), dtype=f32, device=dev)
+    dA = torch.empty(H, dtype=f32, device=dev)
+    n_state = Bb * H * n_chunks * N * P
+    states = torch.empty(n_state, dtype=f32, device=dev)
+    hin, ds = torch.empty((2, n_state), dtype=torch.bfloat16, device=dev)
+    per_chunk = torch.empty((2, Bb * H * n_chunks), dtype=f32, device=dev)
+    parts = torch.empty((2, Bb, L, H, N), dtype=f32, device=dev)
+    ptrs = (x, dt32, A32, B_, C, dy, dx, ddt, dA, dB, dC, states,
+            per_chunk[0], hin, ds, parts[0], parts[1], per_chunk[1])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.ssd_scan_bwd_sm90_backward(
+            *(t.data_ptr() for t in ptrs), Bb, L, H, G, P, N, stream)
+    if err:
+        msg = lib.ssd_scan_bwd_sm90_error_string(err).decode()
+        raise RuntimeError(f"ssd_scan backward kernel launch failed: {msg}")
+    ssd_scan_backward_wgmma.launches += 1
+    return dx, ddt.to(dt.dtype), dA.to(A.dtype), dB, dC
+
+
 def ssd_scan_blh(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                  B_: torch.Tensor, C: torch.Tensor,
                  return_state: bool = False):
@@ -146,3 +210,4 @@ def ssd_scan_blh(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 ssd_scan_blh.launches = 0
 ssd_scan_wgmma.launches = 0
 ssd_scan_fma.launches = 0
+ssd_scan_backward_wgmma.launches = 0

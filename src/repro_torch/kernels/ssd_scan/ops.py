@@ -4,8 +4,10 @@ the final state, for a prefill that caches it): on a CUDA tensor they run
 the kernel (``kernel.ssd_scan_blh``), on a CPU tensor the plain version
 (``ref.ssd_scan_reference``). ``torch.utils.flop_counter.FlopCounterMode``
 counts both by ``ssd_scan_flops``, not by what either implementation
-runs inside. The gradient of y is ``backward.py``'s VJP of the chunked
-form, the same on both devices; the final state has none. Under
+runs inside. The gradient of y is the op
+``repro_torch::ssd_scan_backward`` (``backward.py``): on a CUDA tensor in
+bf16 the backward kernel (``kernel.ssd_scan_backward_wgmma``), else the
+VJP of the chunked form in torch ops; the final state has none. Under
 ``FakeTensorMode`` the ops give empty tensors of their outputs' shapes;
 on DTensors they run on the local shards under ``ssd_sharding``'s rule."""
 from __future__ import annotations
@@ -125,6 +127,14 @@ sharding_rules.register([torch.ops.repro_torch.ssd_scan_state.default],
 def _flops(x_shape, dt_shape, a_shape, b_shape, c_shape, chunk, *args,
            **kwargs) -> int:
     return ssd_scan_flops(x_shape, b_shape, chunk)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan_backward)
+def _backward_flops(x_shape, dt_shape, a_shape, b_shape, c_shape, chunk,
+                    dy_shape, *args, **kwargs) -> int:
+    """Three times the forward's: its four chunk products recomputed, and
+    two products of the same size for each of them."""
+    return 3 * ssd_scan_flops(x_shape, b_shape, chunk)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

@@ -205,6 +205,7 @@ def test_fake_impls_match_real_ops(dtype):
     Bm, C = rn(2, 48, 2, 8), rn(2, 48, 2, 8)
     _fake_vs_real(ops.ssd_scan, x, dt, A, Bm, C, 16)
     _fake_vs_real(ops.ssd_scan_state, x, dt, A, Bm, C, 16)
+    _fake_vs_real(ops.ssd_scan_backward, x, dt, A, Bm, C, 16, rn(2, 48, 4, 8))
     w = rn(120, 3)
     for window, stride in ((30, 10), (10, 10), (60, 60)):
         _fake_vs_real(ops.window_aggregate, w, "max", window, stride)

@@ -667,10 +667,11 @@ def test_ssd_final_state_matches_plain(cuda, dtype, B, L, H, P, G, N):
                           (1, 64, 64, 3, 3, False)])
 def test_flash_at_head_dim_16_matches_plain(cuda, B, Sq, Skv, H, KV, causal,
                                             dtype):
-    """reduced()'s head dim 16 runs on the card: the CUDA-core kernel that
-    both flash sources build for d 16 (``flash_attention_d16``, counted
-    there and nowhere else), within the sweep's tolerance of the plain
-    version, bit-identical on a rerun; a row that sees no key gives 0."""
+    """reduced()'s head dim 16 runs on the card: bf16 on the wgmma kernel
+    (``flash_attention_wgmma``, its 32-column tiles zero past d), float32
+    on the CUDA-core kernel (``flash_attention_d16``), each counted there
+    and nowhere else, within the sweep's tolerance of the plain version,
+    bit-identical on a rerun; a row that sees no key gives 0."""
     g = torch.Generator(device=cuda).manual_seed(Sq + Skv)
     dt = getattr(torch, dtype)
     q = torch.randn(B, Sq, H, 16, device=cuda, generator=g).to(dt)
@@ -680,7 +681,8 @@ def test_flash_at_head_dim_16_matches_plain(cuda, B, Sq, Skv, H, KV, causal,
                 flash_attention_3xtf32)
     before = [c.launches for c in counters]
     out = flash_attention(q, k, v, causal=causal)
-    assert [c.launches - b for c, b in zip(counters, before)] == [1, 0, 0]
+    want = [0, 1, 0] if dtype == "bfloat16" else [1, 0, 0]
+    assert [c.launches - b for c, b in zip(counters, before)] == want
     ref = attention_reference(q, k, v, causal=causal)
     assert out.dtype == dt
     torch.testing.assert_close(out.float(), ref.float(),
@@ -689,6 +691,19 @@ def test_flash_at_head_dim_16_matches_plain(cuda, B, Sq, Skv, H, KV, causal,
                                                          causal=causal)))
     if causal and Sq > Skv:
         assert not out[:, :Sq - Skv].any()
+
+
+@pytest.mark.gpu
+def test_cuda_core_kernel_at_head_dim_16_takes_float32_only(cuda):
+    """The CUDA-core d 16 kernel is float32's: bf16 (which runs d 16 on
+    the wgmma kernel) raises there and launches nothing."""
+    g = torch.Generator(device=cuda).manual_seed(16)
+    q, k, v = (torch.randn(s, device=cuda, generator=g).bfloat16()
+               for s in ((8, 128, 4, 16), (8, 128, 2, 16), (8, 128, 2, 16)))
+    before = flash_attention_d16.launches
+    with pytest.raises(ValueError, match="takes torch.float32"):
+        flash_attention_d16(q, k, v, True)
+    assert flash_attention_d16.launches == before
 
 
 def _grad_err(got, want):
@@ -815,8 +830,9 @@ def test_flash_backward_kernel_rejects_what_it_does_not_take(cuda):
 def test_ssd_backward_on_the_card_matches_the_cpu(cuda, B, L, H, P, G, N,
                                                   chunk, dtype):
     """loss.backward() through the SSD op on the card (its forward the
-    kernel, its backward the VJP of the chunked form) against the same on
-    the CPU: every gradient (x, dt, A, B_, C) within 1e-4 (fp32) or 1e-1
+    kernel, its backward the bf16 kernel or, in fp32, the VJP of the
+    chunked form) against the same on the CPU (the plain forward, the
+    VJP): every gradient (x, dt, A, B_, C) within 1e-4 (fp32) or 1e-1
     (bf16) of its max."""
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator().manual_seed(L + N)
@@ -834,6 +850,96 @@ def test_ssd_backward_on_the_card_matches_the_cpu(cuda, B, L, H, P, G, N,
         grads[dev.type] = [t.grad for t in ins]
     assert _grad_err(grads["cuda"], grads["cpu"]) <= (
         1e-4 if dtype == "float32" else 1e-1)
+
+
+# the SSD backward kernel's cases (B, L, H, P, G, N): G 1 and 2, L past
+# the last whole chunk of 64, a single chunk, mamba2's P 64 and N 128
+SSD_BWD_CASES = [(2, 256, 4, 64, 1, 128), (1, 200, 4, 16, 2, 32),
+                 (1, 328, 8, 64, 1, 128), (2, 40, 4, 16, 1, 32)]
+
+
+def _ssd_bwd_inputs(dev, B, L, H, P, G, N, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = getattr(torch, dtype)
+
+    def rn(*s):
+        return torch.randn(s, device=dev, generator=g)
+    return [rn(B, L, H, P).to(dt),
+            torch.nn.functional.softplus(rn(B, L, H)),
+            -torch.exp(rn(H) * 0.5), (rn(B, L, G, N) * 0.3).to(dt),
+            (rn(B, L, G, N) * 0.3).to(dt), rn(B, L, H, P).to(dt)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L,H,P,G,N", SSD_BWD_CASES)
+def test_ssd_backward_kernel_matches_the_formula(cuda, B, L, H, P, G, N):
+    """The bf16 SSD backward kernel (``ssd_scan_backward_wgmma``, one
+    count a call) against its plain version, the VJP of the chunked form,
+    run in fp32 on the same values: each of dx, ddt, dA, dB_, dC finite,
+    of its input's type, within 2 × the bf16 formula's own error against
+    it + 1e-3·max|g| (no less accurate than the formula); a rerun
+    bit-identical."""
+    from repro_torch.kernels.ssd_scan.backward import ssd_scan_backward
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_backward_wgmma
+    torch.backends.cuda.matmul.allow_tf32 = False
+    *ins, dy = _ssd_bwd_inputs(cuda, B, L, H, P, G, N, "bfloat16", L + G)
+    before = ssd_scan_backward_wgmma.launches
+    got = ssd_scan_backward_wgmma(*ins, dy)
+    again = ssd_scan_backward_wgmma(*ins, dy)
+    assert ssd_scan_backward_wgmma.launches - before == 2
+    exact = ssd_scan_backward(*(t.float() for t in ins), 64, dy.float())
+    plain = ssd_scan_backward(*ins, 64, dy)
+    for a, b, p, e, t in zip(got, again, plain, exact, ins):
+        assert a.dtype == t.dtype and a.shape == t.shape
+        assert torch.isfinite(a.float()).all()
+        assert torch.equal(_bits(a), _bits(b))
+        mx = float(e.abs().max())
+        e_k = float((a.float() - e).abs().max())
+        e_f = float((p.float() - e).abs().max())
+        assert e_k <= 2 * e_f + 1e-3 * mx, (e_k, e_f, mx)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_ssd_backward_route_on_the_card(cuda, dtype):
+    """``repro_torch::ssd_scan_backward`` on the card: bf16 through the
+    kernel (one launch), fp32 through the formula (none), equal bit for
+    bit to the route's function; autograd through the SSD op takes the
+    same route."""
+    from repro_torch.kernels.ssd_scan.backward import ssd_scan_backward
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_backward_wgmma
+    torch.backends.cuda.matmul.allow_tf32 = False
+    *ins, dy = _ssd_bwd_inputs(cuda, 1, 200, 4, 16, 2, 32, dtype, 3)
+    want_launches = 1 if dtype == "bfloat16" else 0
+    before = ssd_scan_backward_wgmma.launches
+    got = torch.ops.repro_torch.ssd_scan_backward(*ins, 64, dy)
+    assert ssd_scan_backward_wgmma.launches - before == want_launches
+    route = (ssd_scan_backward_wgmma(*ins, dy) if dtype == "bfloat16"
+             else ssd_scan_backward(*ins, 64, dy))
+    for a, b in zip(got, route):
+        assert torch.equal(_bits(a), _bits(b))
+    req = [t.clone().requires_grad_(True) for t in ins]
+    before = ssd_scan_backward_wgmma.launches
+    ssd_scan(*req, chunk=64).backward(dy)
+    assert ssd_scan_backward_wgmma.launches - before == want_launches
+    for t, b in zip(req, got):
+        assert torch.equal(_bits(t.grad), _bits(b))
+
+
+@pytest.mark.gpu
+def test_ssd_backward_kernel_rejects_what_it_does_not_take(cuda):
+    """float32 inputs, a dy of another shape or type, a non-contiguous
+    dy: ValueError before any launch."""
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_backward_wgmma
+    *ins, dy = _ssd_bwd_inputs(cuda, 1, 64, 2, 16, 1, 16, "bfloat16", 0)
+    before = ssd_scan_backward_wgmma.launches
+    f32 = [t.float() for t in ins]
+    bad = [(*f32, dy.float()), (*ins, dy[:, :32]), (*ins, dy.float()),
+           (*ins, dy.transpose(1, 2).contiguous().transpose(1, 2))]
+    for args in bad:
+        with pytest.raises(ValueError):
+            ssd_scan_backward_wgmma(*args)
+    assert ssd_scan_backward_wgmma.launches == before
 
 
 @pytest.mark.gpu
@@ -947,3 +1053,29 @@ def test_flash_and_ssd_under_dtensor_match_plain(nccl_mesh, dtype):
     want = ssd_scan_reference(x, dtv, A, Bm, C)
     err = float((y.full_tensor().float() - want.float()).abs().max())
     assert err <= SSD_RTOL[dtype] * float(want.float().abs().max()), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G", [1, 2])
+def test_ssd_backward_under_dtensor_runs_the_kernel(nccl_mesh, G):
+    """The SSD op's bf16 gradient on DTensors of a 1×1 CUDA mesh (batch
+    over "data", heads over "model") runs the backward kernel once, on
+    the local shards, and equals the gradient without DTensor bit for
+    bit."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_backward_wgmma
+    mesh = nccl_mesh
+    dev = torch.device("cuda", 0)
+    *ins, dy = _ssd_bwd_inputs(dev, 2, 200, 8, 64, G, 128, "bfloat16", G)
+    pl = [Shard(0), Shard(2)]
+    bc = [Shard(0), Shard(2) if G > 1 else Replicate()]
+    dts = [distribute_tensor(t, mesh, p).requires_grad_(True)
+           for t, p in zip(ins, (pl, pl, [Replicate(), Shard(0)], bc, bc))]
+    y = ssd_scan(*dts, chunk=64)
+    before = ssd_scan_backward_wgmma.launches
+    y.backward(distribute_tensor(dy, mesh, y.placements))
+    assert ssd_scan_backward_wgmma.launches - before == 1
+    plain = [t.clone().requires_grad_(True) for t in ins]
+    ssd_scan(*plain, chunk=64).backward(dy)
+    for a, b in zip(dts, plain):
+        assert torch.equal(_bits(a.grad.full_tensor()), _bits(b.grad))

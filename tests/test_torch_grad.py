@@ -180,6 +180,64 @@ def test_ssd_backward_matches_jax_grad(B, L, H, P, G, N, chunk, dtype):
             np.abs(ref).max()), "dA vs the JAX package"
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,L,H,P,G,N,chunk", SSD_CASES[:2])
+def test_ssd_backward_op_runs_the_formula_on_the_cpu(B, L, H, P, G, N, chunk,
+                                                     dtype):
+    """On the CPU the op ``repro_torch::ssd_scan_backward`` runs the
+    formula (the bf16 kernel is the card's route): bit for bit
+    ``ssd_scan_backward`` and the autograd of ``ssd_chunked`` outside any
+    op, each gradient in its input's type; autograd through the SSD op
+    gives the same gradients."""
+    from repro_torch.kernels.ssd_scan.backward import ssd_scan_backward
+    (x, dt, A, Bm, Cm), dy = _ssd_inputs(B, L, H, P, G, N, 2 * L + G)
+    tdt = DT[dtype][1]
+    ins = [torch.from_numpy(a).to(t) for a, t in zip(
+        (x, dt, A, Bm, Cm), (tdt, torch.float32, torch.float32, tdt, tdt))]
+    dyt = torch.from_numpy(dy).to(tdt)
+    got = torch.ops.repro_torch.ssd_scan_backward(*ins, chunk, dyt)
+    want = ssd_scan_backward(*ins, chunk, dyt)
+    req = [t.clone().requires_grad_(True) for t in ins]
+    plain = torch.autograd.grad(port_chunked(*req, chunk)[0], req, dyt)
+    for a, b, c, t in zip(got, want, plain, ins):
+        assert a.dtype == t.dtype and torch.equal(a, b)
+        assert torch.equal(a, c.to(t.dtype))
+    req = [t.clone().requires_grad_(True) for t in ins]
+    ssd_scan(*req, chunk=chunk).backward(dyt)
+    for t, b in zip(req, want):
+        assert torch.equal(t.grad, b)
+
+
+@pytest.mark.parametrize("G", [1, 2])
+def test_ssd_backward_on_dtensors_runs_the_op_per_shard(G):
+    """On DTensors of a one-rank gloo mesh (batch over "data", heads over
+    "model"; B_ and C over "model" with their groups, replicated where
+    every head shares one), the SSD op's gradient runs
+    ``repro_torch::ssd_scan_backward`` on each shard's local tensors
+    (``local_map``) and equals the op's on plain tensors bit for bit."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.launch.mesh import init_local_world, make_dev_mesh
+    args, dy = _ssd_inputs(2, 64, 4, 8, G, 8, 13 + G)
+    ts = [torch.from_numpy(a) for a in args]
+    dyt = torch.from_numpy(dy)
+    want = torch.ops.repro_torch.ssd_scan_backward(*ts, 16, dyt)
+    init_local_world("cpu")
+    try:
+        mesh = make_dev_mesh(1, 1, device_type="cpu")
+        pl = [Shard(0), Shard(2)]
+        bc = [Shard(0), Shard(2) if G > 1 else Replicate()]
+        dts = [distribute_tensor(t, mesh, p).requires_grad_(True)
+               for t, p in zip(ts, (pl, pl, [Replicate(), Shard(0)], bc,
+                                    bc))]
+        y = ssd_scan(*dts, chunk=16)
+        y.backward(distribute_tensor(dyt, mesh, y.placements))
+        for t, w in zip(dts, want):
+            assert torch.equal(t.grad.full_tensor(), w)
+    finally:
+        dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("B,L,H,P,G,N,chunk", SSD_CASES)
 def test_ssd_chunked_forward_matches_jax(B, L, H, P, G, N, chunk):
     """The backward's torch ``ssd_chunked`` is the JAX package's: y and

@@ -8,7 +8,8 @@ inputs, under the limits of ``repro_torch.kernels.sweeps``.
 
 * ``flash_design``: ``csrc/flash_attention_sm90.cu`` in bf16: key tiles of
   128, an online softmax in fp32 with ``exp2`` and log2(e) folded into the
-  scale, P rounded to bf16 before P·V, a row that sees no key giving 0.
+  scale, P rounded to bf16 before P·V, a row that sees no key giving 0;
+  at d 16 on the kernel's 32-column tiles, the 16 past d zero.
 * ``flash_3xtf32_design``: ``csrc/flash_attention_sm90_f32.cu`` in fp32:
   each operand split into TF32 parts hi = tf32(a), lo = tf32(a - hi)
   (round to nearest, ties away, emulated on the bits), each product
@@ -29,6 +30,13 @@ inputs, under the limits of ``repro_torch.kernels.sweeps``.
   padded to 32 zero columns as the kernel's tiles are. It is held
   against ``jax.grad`` of ``models.layers.chunked_attention``, the JAX
   package's training attention (it has no backward kernel).
+* ``ssd_backward_design``: ``csrc/ssd_scan_bwd_sm90.cu`` in bf16: the
+  forward's states recomputed, each chunk's state cotangent, a reverse
+  pass over the chunks, one adjoint per chunk of 64 steps, the sums over
+  each group's heads; B·w, h_in, C·e^cum, dS, M and dM∘L∘dt rounded to
+  bf16 where the kernel's products take them. It is held against
+  ``jax.grad`` of ``models.ssm.ssd_chunked``, with which the JAX package
+  trains mamba2 (it has no backward kernel).
 """
 import math
 
@@ -42,12 +50,17 @@ from repro.kernels.flash_attention import attention_reference as jax_attention
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.kernels.ssd_scan import ssd_scan as jax_ssd_scan
 from repro.models.layers import chunked_attention
+from repro.models.ssm import ssd_chunked
 from repro_torch.kernels.flash_attention.backward import (
     flash_attention_backward)
+from repro_torch.kernels.ssd_scan.backward import (
+    ssd_chunked as port_ssd_chunked)
+from repro_torch.kernels.ssd_scan.backward import ssd_scan_backward
 from repro_torch.kernels.sweeps import (FLASH_BWD_RTOL, FLASH_BWD_SWEEP,
                                         FLASH_SWEEP, FLASH_TOL,
                                         FULL_FLASH_BF16_ROW_RTOL,
-                                        FULL_SSD_RTOL, SSD_RTOL, SSD_SWEEP)
+                                        FULL_SSD_RTOL, SSD_BWD_RTOL,
+                                        SSD_RTOL, SSD_SWEEP)
 
 torch.set_num_threads(2)
 
@@ -56,19 +69,24 @@ F32_KEY_TILE = 32       # flash_attention_sm90_f32.cu kBN
 LOG2E = 1.4426950408889634
 
 
-def flash_design(q, k, v, causal: bool) -> torch.Tensor:
+def flash_design(q, k, v, causal: bool, tile_cols: int = 0) -> torch.Tensor:
     """q [B, Sq, H, d], k/v [B, Skv, KV, d] bf16 → o bf16, the way the
-    wgmma kernel computes it."""
+    wgmma kernel computes it; with ``tile_cols`` > d the operands are
+    zero-padded to that many columns, as the kernel's tiles are at d 16
+    (32 columns), and the output keeps the d real ones."""
     B, Sq, H, d = q.shape
     Skv, KV = k.shape[1], k.shape[2]
-    qf = q.float().permute(0, 2, 1, 3)                           # [B,H,Sq,d]
-    kf = k.float().repeat_interleave(H // KV, 2).permute(0, 2, 1, 3)
-    vf = v.float().repeat_interleave(H // KV, 2).permute(0, 2, 1, 3)
+    pad = (0, max(0, tile_cols - d))
+    qf = torch.nn.functional.pad(q.float().permute(0, 2, 1, 3), pad)
+    kf = torch.nn.functional.pad(
+        k.float().repeat_interleave(H // KV, 2).permute(0, 2, 1, 3), pad)
+    vf = torch.nn.functional.pad(
+        v.float().repeat_interleave(H // KV, 2).permute(0, 2, 1, 3), pad)
     scale_log2 = (1.0 / math.sqrt(d)) * LOG2E
     rows = torch.arange(Sq)[:, None] + (Skv - Sq)
     m = torch.full((B, H, Sq), -math.inf)
     l = torch.zeros(B, H, Sq)
-    acc = torch.zeros(B, H, Sq, d)
+    acc = torch.zeros(B, H, Sq, qf.shape[3])
     for k0 in range(0, Skv, KEY_TILE):
         kt, vt = kf[:, :, k0:k0 + KEY_TILE], vf[:, :, k0:k0 + KEY_TILE]
         s = qf @ kt.transpose(-1, -2)                            # fp32 sums
@@ -84,7 +102,7 @@ def flash_design(q, k, v, causal: bool) -> torch.Tensor:
         acc = acc * alpha[..., None] + p.bfloat16().float() @ vt
         m = m_new
     out = acc / torch.where(l == 0, torch.ones(()), l)[..., None]
-    return out.permute(0, 2, 1, 3).bfloat16()
+    return out[..., :d].permute(0, 2, 1, 3).bfloat16()
 
 
 def tf32(t: torch.Tensor) -> torch.Tensor:
@@ -222,6 +240,34 @@ def test_flash_design_matches_jax(B, Sq, Skv, H, KV, d, causal):
     np.testing.assert_allclose(t, j, atol=FLASH_TOL["bfloat16"], rtol=0)
     if causal and Sq > Skv:
         assert not t[:, :Sq - Skv].any()
+
+
+# head dim 16 (the reduced() configs'): the reduced train_loop's shape
+# first (smollm-135m: batch 8, seq 128, H 4, KV 2), then ragged MQA, Sq <
+# Skv and Sq > Skv
+FLASH_D16 = [(8, 128, 128, 4, 2, 16, True), (2, 200, 200, 4, 1, 16, True),
+             (1, 96, 160, 4, 2, 16, False), (1, 160, 96, 2, 2, 16, True)]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,d,causal", FLASH_D16)
+def test_flash_design_at_head_dim_16_on_32_columns(B, Sq, Skv, H, KV, d,
+                                                   causal):
+    """bf16 at d 16 runs on the wgmma kernel's 32-column tiles, the 16
+    columns past d zero: that replay equals the unpadded one bit for bit
+    (the zero columns add exact zeros to Q·Kᵀ; the scale stays 1/√16),
+    and it is within FLASH_TOL of the JAX package's kernel in interpret
+    mode on the same inputs."""
+    arrays = _flash_inputs(B, Sq, Skv, H, KV, d, seed=Sq + Skv)
+    t = [torch.from_numpy(a).bfloat16() for a in arrays]
+    padded = flash_design(*t, causal, tile_cols=32)
+    assert torch.equal(padded, flash_design(*t, causal))
+    j = np.asarray(jax_flash(*(jnp.asarray(a).astype(jnp.bfloat16)
+                               for a in arrays), causal=causal,
+                             interpret=True).astype(jnp.float32))
+    np.testing.assert_allclose(padded.float().numpy(), j,
+                               atol=FLASH_TOL["bfloat16"], rtol=0)
+    if causal and Sq > Skv:
+        assert not padded[:, :Sq - Skv].any()
 
 
 @pytest.mark.parametrize("oracle", ["flash_attention", "exact"])
@@ -569,4 +615,182 @@ def test_flash_backward_design_no_less_accurate_than_the_formula(
         mx = float(e.abs().max())
         e_f = float((f.float() - e).abs().max())
         e_g = float((g.float() - e).abs().max())
+        assert e_g <= 2 * e_f + 1e-3 * mx, (name, e_g, e_f)
+
+
+# ---- SSD backward ----------------------------------------------------------
+
+SSD_BWD_CHUNK = 64      # ssd_scan_bwd_sm90.cu (and ssd_scan.cu) kQ
+# the SSD_SWEEP shapes (B, L, H, P, G, N, chunk), each once, and one L
+# below a chunk
+SSD_BWD_SHAPES = sorted({c[:7] for c in SSD_SWEEP}) + [(2, 40, 4, 16, 1, 32,
+                                                        64)]
+
+
+def _unchunk(t, L):
+    """[B, nc, Q, ...] → [B, L, ...]."""
+    return t.reshape(t.shape[0], -1, *t.shape[3:])[:, :L]
+
+
+def ssd_backward_design(x, dt, A, B_, C, dy, Q: int = SSD_BWD_CHUNK):
+    """x, dy [B,L,H,P], dt [B,L,H] f32, A [H] f32, B_/C [B,L,G,N] → (dx,
+    ddt, dA, dB_, dC) in their inputs' types, the way the backward kernel
+    computes them over chunks of Q steps: (0) the forward's chunk states
+    and the states entering each chunk (B·w and h_in rounded as the
+    forward rounds them); (1) each chunk's state cotangent dh_in =
+    (C·e^cum)ᵀ·dY; (2) a reverse pass over the chunks, Gh[c] = dh_in[c] +
+    e^T_c·Gh[c+1] with dS_c = Gh[c+1]; (3) one adjoint per chunk and head;
+    (4) da the reverse running sum of dcum plus dT, ddt and dA from it, dB
+    and dC summed over each group's heads. In bf16 the operands the
+    products take are rounded where the kernel rounds them: B·w, h_in,
+    C·e^cum, dS, M and dM∘L∘dt; every sum is float32."""
+    rnd = x.dtype == torch.bfloat16
+    Bb, L, H, P = x.shape
+    G, N = B_.shape[2], B_.shape[3]
+    rep = H // G
+    nc = -(-L // Q)
+    pad = nc * Q - L
+
+    def chunks(t):        # [B, L, ...] → [B, nc, Q, ...], zeros past L
+        widths = (0, 0) * (t.dim() - 2) + (0, pad)
+        t = torch.nn.functional.pad(t.float(), widths)
+        return t.reshape(Bb, nc, Q, *t.shape[2:])
+
+    xc, dyc, dtc = chunks(x), chunks(dy), chunks(dt)
+    Bc = chunks(B_).repeat_interleave(rep, 3)                    # [B,nc,Q,H,N]
+    Cc = chunks(C).repeat_interleave(rep, 3)
+    Af = A.float()
+    cum = torch.cumsum(dtc * Af, dim=2)                          # [B,nc,Q,H]
+    total = cum[:, :, -1]                                        # [B,nc,H]
+    w = dtc * torch.exp(total[:, :, None] - cum)
+    # (0) the forward's chunk states and the states entering each chunk
+    S = torch.einsum("bcjhn,bcjhp->bchnp", _bf16(Bc * w[..., None], rnd), xc)
+    h_in = torch.zeros_like(S)
+    run = torch.zeros_like(S[:, 0])
+    for c in range(nc):
+        h_in[:, c] = run
+        run = torch.exp(total[:, c])[..., None, None] * run + S[:, c]
+    h_in = _bf16(h_in, rnd)
+    # (1) the state cotangent of each chunk's carry-in term
+    Ce = _bf16(Cc * torch.exp(cum)[..., None], rnd)
+    dh = torch.einsum("bcjhn,bcjhp->bchnp", Ce, dyc)
+    # (2) the reverse pass: dS_c = Gh[c+1]
+    dS = torch.zeros_like(dh)
+    g = torch.zeros_like(dh[:, 0])
+    for c in reversed(range(nc)):
+        dS[:, c] = g
+        g = dh[:, c] + torch.exp(total[:, c])[..., None, None] * g
+    dS = _bf16(dS, rnd)
+    # (3) the adjoint of each chunk: the diagonal term
+    CB = torch.einsum("bcihn,bcjhn->bchij", Cc, Bc)
+    dM = torch.einsum("bcihp,bcjhp->bchij", dyc, xc)
+    cum_h = cum.permute(0, 1, 3, 2)                              # [B,nc,H,Q]
+    mask = torch.ones(Q, Q, dtype=torch.bool).tril()
+    seg = torch.where(mask, cum_h[..., :, None] - cum_h[..., None, :],
+                      torch.zeros(()))
+    Lm = torch.where(mask, torch.exp(seg), torch.zeros(()))
+    dt_j = dtc.permute(0, 1, 3, 2)[..., None, :]
+    M = _bf16(CB * Lm * dt_j, rnd)
+    dCB = dM * Lm * dt_j
+    dCBr = _bf16(dCB, rnd)
+    Z = dCB * CB
+    row_z = Z.sum(-1).permute(0, 1, 3, 2)                        # [B,nc,Q,H]
+    col_z = Z.sum(-2).permute(0, 1, 3, 2)
+    col_w = (dM * CB * Lm).sum(-2).permute(0, 1, 3, 2)
+    # the chunk-state term, through dS
+    P1 = torch.einsum("bcjhn,bchnp->bcjhp", Bc, dS)
+    dw = (xc * P1).sum(-1)                                       # [B,nc,Q,H]
+    dX = torch.einsum("bchij,bcihp->bcjhp", M, dyc) + w[..., None] * P1
+    dB = (torch.einsum("bchij,bcihn->bcjhn", dCBr, Cc)
+          + w[..., None] * torch.einsum("bcjhp,bchnp->bcjhn", xc, dS))
+    # the carry-in term
+    eT = torch.exp(cum)[..., None] * torch.einsum("bcihp,bchnp->bcihn", dyc,
+                                                  h_in)
+    dcin = (eT * Cc).sum(-1)
+    dC = torch.einsum("bchij,bcjhn->bcihn", dCBr, Bc) + eT
+    dT = (torch.exp(total) * (h_in * dS).sum((-1, -2))
+          + (dw * w).sum(2))                                     # [B,nc,H]
+    # (4) finish
+    dcum = row_z - col_z + dcin - dw * w
+    da = torch.flip(torch.cumsum(torch.flip(dcum, [2]), 2), [2]) \
+        + dT[:, :, None]
+    ddt = col_w + dw * torch.exp(total[:, :, None] - cum) + Af * da
+    dA = (dtc * da).sum((0, 1, 2))
+    dB = _unchunk(dB, L).reshape(Bb, L, G, rep, N).sum(3)
+    dC = _unchunk(dC, L).reshape(Bb, L, G, rep, N).sum(3)
+    return (_unchunk(dX, L).to(x.dtype), _unchunk(ddt, L).to(dt.dtype),
+            dA.to(A.dtype), dB.to(B_.dtype), dC.to(C.dtype))
+
+
+def _ssd_bwd_arrays(B, L, H, P, G, N, seed):
+    x, dt, A, B_, C = _ssd_inputs(B, L, H, P, G, N, seed)
+    dy = np.random.default_rng(seed + 1).standard_normal(
+        (B, L, H, P)).astype(np.float32)
+    return (x, dt, A, B_, C), dy
+
+
+def _jax_ssd_grads(arrays, dy, chunk, dtype):
+    """jax.grad of ``models.ssm.ssd_chunked``'s y (the JAX package trains
+    mamba2 by XLA's autodiff of it) with cotangent dy: x, B_, C in
+    ``dtype``, dt and A float32, as the model hands them to the scan."""
+    jdt = getattr(jnp, dtype)
+    types = (jdt, jnp.float32, jnp.float32, jdt, jdt)
+
+    def f(*args):
+        y, _ = ssd_chunked(*args, chunk)
+        return jnp.sum(y.astype(jnp.float32) * dy)
+    return [np.asarray(g, np.float32) for g in jax.jit(jax.grad(
+        f, argnums=(0, 1, 2, 3, 4)))(*(jnp.asarray(a, t)
+                                       for a, t in zip(arrays, types)))]
+
+
+def _ssd_bwd_tensors(arrays, dy, dtype):
+    dt_ = getattr(torch, dtype)
+    x, dt, A, B_, C = (torch.from_numpy(a) for a in arrays)
+    return (x.to(dt_), dt, A, B_.to(dt_), C.to(dt_)), torch.from_numpy(
+        dy).to(dt_)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,L,H,P,G,N,chunk", SSD_BWD_SHAPES)
+def test_ssd_backward_design_matches_jax_grad(B, L, H, P, G, N, chunk,
+                                              dtype):
+    """Each of dx, ddt, dA, dB_, dC within SSD_BWD_RTOL[dtype]·max|g| of
+    jax.grad of ssd_chunked on the same inputs and cotangent: bf16 with
+    the kernel's rounding points, fp32 with none."""
+    arrays, dy = _ssd_bwd_arrays(B, L, H, P, G, N, seed=L + P + G)
+    want = _jax_ssd_grads(arrays, dy, chunk, dtype)
+    ins, dyt = _ssd_bwd_tensors(arrays, dy, dtype)
+    got = ssd_backward_design(*ins, dyt)
+    for name, g, w, t in zip(("dx", "ddt", "dA", "dB_", "dC"), got, want,
+                             ins):
+        assert g.dtype == t.dtype and g.shape == t.shape, name
+        g = g.float().numpy()
+        assert np.isfinite(g).all(), name
+        err = float(np.abs(g - w).max())
+        assert err <= SSD_BWD_RTOL[dtype] * float(np.abs(w).max()), (name,
+                                                                      err)
+
+
+@pytest.mark.parametrize("B,L,H,P,G,N,chunk",
+                         [(2, 200, 4, 16, 2, 32, 64),
+                          (1, 256, 8, 64, 1, 128, 128)])
+def test_ssd_backward_design_no_less_accurate_than_the_formula(
+        B, L, H, P, G, N, chunk):
+    """Against a float64 autodiff of the chunked form on the same (bf16)
+    values, each gradient of the bf16 replay is within 2 × the bf16
+    formula's own error + 1e-3·max|g|, the limit chip_smoke.py holds the
+    kernel to against the formula in fp32."""
+    arrays, dy = _ssd_bwd_arrays(B, L, H, P, G, N, seed=5)
+    ins, dyt = _ssd_bwd_tensors(arrays, dy, "bfloat16")
+    t64 = [t.double().requires_grad_(True) for t in ins]
+    y64, _ = port_ssd_chunked(*t64, chunk)
+    exact = torch.autograd.grad(y64, t64, dyt.double())
+    formula = ssd_scan_backward(*ins, chunk, dyt)
+    design = ssd_backward_design(*ins, dyt)
+    for name, e, f, g in zip(("dx", "ddt", "dA", "dB_", "dC"), exact,
+                             formula, design):
+        mx = float(e.abs().max())
+        e_f = float((f.double() - e).abs().max())
+        e_g = float((g.double() - e).abs().max())
         assert e_g <= 2 * e_f + 1e-3 * mx, (name, e_g, e_f)

@@ -82,6 +82,22 @@ def test_flop_counter_counts_the_chunk_products(L, chunk):
     assert ssd_scan_flops((1, L, 2, 16), (1, L, 1, 8), chunk) == want
 
 
+@pytest.mark.parametrize("L,chunk", [(128, 64), (200, 64)])
+def test_flop_counter_counts_the_backward_op(L, chunk):
+    """The gradient is one op, ``repro_torch::ssd_scan_backward``, which
+    FlopCounterMode counts as three forwards (the chunk products
+    recomputed, and two of the same size for each), not by what its
+    formula runs inside: a forward and backward count four."""
+    arrays = _inputs(1, L, 2, 16, 1, 8)
+    ins = [torch.from_numpy(a).requires_grad_(True) for a in arrays]
+    with FlopCounterMode(display=False) as fc:
+        ssd_scan(*ins, chunk=chunk).sum().backward()
+    fwd = ssd_scan_flops((1, L, 2, 16), (1, L, 1, 8), chunk)
+    assert fc.get_total_flops() == 4 * fwd
+    assert fc.get_flop_counts()["Global"][
+        torch.ops.repro_torch.ssd_scan_backward] == 3 * fwd
+
+
 def test_chunk_does_not_change_the_cpu_result():
     tensors = [torch.from_numpy(a) for a in _inputs(1, 96, 2, 8, 1, 8, 3)]
     assert torch.equal(ssd_scan(*tensors, chunk=32), ssd_scan(*tensors))
