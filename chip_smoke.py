@@ -161,9 +161,10 @@ JSON line; any failure exits non-zero:
           1e-4, parameters within 2·lr + 1e-6); the reduced defaults on
           the card (head dim 16): train_loop smollm-135m for 20 steps
           (the loss drops; the wgmma forward and the backward kernel at
-          d 16 once a layer a step; the d 16 kernels and SDPA timed, and
-          their device ms from torch.profiler in a child process,
-          ``chip_smoke.py --trace-d16``) and 3 fp32 steps, serve_demo,
+          d 16 once a layer a step; the d 16 kernels, the bf16 backward
+          kernel, SDPA and SDPA's backward timed, and their device ms from
+          torch.profiler in a child process, ``chip_smoke.py
+          --trace-d16``) and 3 fp32 steps, serve_demo,
           measure_step_time of schedule_run's archs, ``schedule_run
           --jobs 3 --steps 2`` (its plan line equal to the CPU's); the
           path's kernels by CUDA events for the ``kernels`` line
@@ -1766,14 +1767,17 @@ def trace_d16() -> None:
     """(Run as ``chip_smoke.py --trace-d16``, by ``train_path``.) Flash at
     head dim 16 at the reduced train_loop's shape (FLASH_D16_CASES[0]),
     bf16 and fp32, through ``flash_attention_bshd`` (whichever kernel this
-    checkout routes it to) and SDPA on the same inputs, each under
-    torch.profiler over 50 calls (``kernel_device_ms``); prints {dtype:
-    {device_ms, library_device_ms, device_ms_by_kernel,
-    library_device_ms_by_kernel}} on its last line, device ms per call. A
-    process of its own, as ``trace_train``."""
+    checkout routes it to) and SDPA on the same inputs, and in bf16 the
+    backward kernel and SDPA's backward, each under torch.profiler over 50
+    calls (``kernel_device_ms``); prints {dtype: {device_ms,
+    library_device_ms, device_ms_by_kernel, library_device_ms_by_kernel}}
+    on its last line, with {backward_device_ms,
+    backward_library_device_ms, and the two by kernel} in bf16's, device
+    ms per call. A process of its own, as ``trace_train``."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_bshd
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_backward_wgmma, flash_attention_bshd)
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1790,6 +1794,22 @@ def trace_d16() -> None:
                    "library_device_ms": sum(lib.values()),
                    "device_ms_by_kernel": kern,
                    "library_device_ms_by_kernel": lib}
+    # the bf16 backward kernel and SDPA's backward on the same values
+    q, k, v = flash_inputs(dev, gen, B, Sq, Skv, H, KV, d, "bfloat16")
+    do = torch.randn(q.shape, device=dev, generator=gen).to(q.dtype)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                       enable_gqa=True)
+    kern = kernel_device_ms(
+        lambda: flash_attention_backward_wgmma(q, k, v, do, causal), n=50)
+    lib = kernel_device_ms(lambda: torch.autograd.grad(
+        o, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), n=50)
+    out["bfloat16"].update(
+        backward_device_ms=sum(kern.values()),
+        backward_library_device_ms=sum(lib.values()),
+        backward_device_ms_by_kernel=kern,
+        backward_library_device_ms_by_kernel=lib)
     print(json.dumps(out), flush=True)
 
 
@@ -2081,16 +2101,16 @@ BACKWARD_ROW = {
                                 SSD_BWD_REPLACES)}
 
 
-def time_flash_backward(dev, gen, cfg, smi0) -> dict:
-    """The flash backward kernel at ``cfg``'s full-width training shape
-    (TRAIN_FULL's batch and seq, causal, bf16), first held to the formula
-    in bf16 and in fp32 on the same values (``_flash_bwd_vs_fp32_formula``),
+def time_flash_backward(dev, gen, shape, label, smi0) -> dict:
+    """The flash backward kernel at ``shape`` (B, S, H, KV, d: q [B, S, H,
+    d], k/v [B, S, KV, d], causal, bf16), first held to the formula in
+    bf16 and in fp32 on the same values (``_flash_bwd_vs_fp32_formula``),
     then timed: the kernel as the median of 5 batches of 20 launches after
     5 warm-ups with their spread, the formula (its plain version) and
     SDPA's backward by CUDA events, beside the bound (q, k, v and dO read
     once, dq, dk, dv written once; 2.5 times the forward's operations);
     ``max_abs_err`` is the kernel's largest difference from the bf16
-    formula. Emits a ``times`` line; returns the timings."""
+    formula. Emits a ``times`` line for ``label``; returns the timings."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.backward import (
@@ -2099,11 +2119,10 @@ def time_flash_backward(dev, gen, cfg, smi0) -> dict:
         flash_attention_backward_wgmma)
     from repro_torch.kernels.flash_attention.ops import flash_attention_flops
 
-    B, S = TRAIN_FULL["batch"], TRAIN_FULL["seq"]
-    q, k, v = flash_inputs(dev, gen, B, S, S, cfg.n_heads, cfg.n_kv_heads,
-                           cfg.head_dim, "bfloat16")
+    B, S, H, KV, d = shape
+    q, k, v = flash_inputs(dev, gen, B, S, S, H, KV, d, "bfloat16")
     do = torch.randn(q.shape, device=dev, generator=gen).to(q.dtype)
-    errs = _flash_bwd_vs_fp32_formula(f"flash backward {cfg.name} train",
+    errs = _flash_bwd_vs_fp32_formula(f"flash backward {label}",
                                 flash_attention_backward_wgmma(
                                     q, k, v, do, True), (q, k, v, do), True)
     torch.cuda.empty_cache()
@@ -2126,9 +2145,8 @@ def time_flash_backward(dev, gen, cfg, smi0) -> dict:
              q.shape, k.shape, True) // 2, "bfloat16"),
          "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
          "vs_formula": errs}
-    emit("times", case=f"flash backward {cfg.name} train",
-         shape=[[B, S, cfg.n_heads, cfg.head_dim],
-                [B, S, cfg.n_kv_heads, cfg.head_dim]], dtype="bfloat16",
+    emit("times", case=f"flash backward {label}",
+         shape=[[B, S, H, d], [B, S, KV, d]], dtype="bfloat16",
          kernel="flash_attention_backward_wgmma", nvidia_smi=smi0, **t)
     del q, k, v, do, qt, kt, vt, o_sdpa, do_t
     torch.cuda.empty_cache()
@@ -2278,8 +2296,12 @@ def train_path(dev, gen, smi0) -> list:
     # the backward kernels timed at the full-width training shapes (bf16)
     # beside their plain versions, the formulas (and SDPA's backward)
     B, S = TRAIN_FULL["batch"], TRAIN_FULL["seq"]
-    bwd_times = {arch: time_flash_backward(dev, gen, get_arch(arch), smi0)
-                 for arch in BWD_TIMED_ARCHS}
+    bwd_times = {}
+    for arch in BWD_TIMED_ARCHS:
+        cfg = get_arch(arch)
+        bwd_times[arch] = time_flash_backward(
+            dev, gen, (B, S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim),
+            f"{arch} train", smi0)
     bwd_times["mamba2-1.3b"] = time_ssd_backward(
         dev, gen, get_arch("mamba2-1.3b"), smi0)
 
@@ -2431,6 +2453,20 @@ def train_path(dev, gen, smi0) -> list:
                      "src/repro/kernels/flash_attention/kernel.py:87",
                      d16_launches if dt == "bfloat16" else d16_launches32,
                      d16_err[dt], t))
+    # the bf16 backward kernel at the reduced train_loop's shape, its
+    # device ms and SDPA's backward's from the child
+    B16, S16, _, H16, KV16, dim16, _ = FLASH_D16_CASES[0]
+    tb = time_flash_backward(dev, gen, (B16, S16, H16, KV16, dim16),
+                             "d 16 smollm-135m reduced train", smi0)
+    tb.update({k: v for k, v in d16_device["bfloat16"].items()
+               if k.startswith("backward_")})
+    emit("times", case="flash backward d 16 smollm-135m reduced train "
+         "device", nvidia_smi=smi0,
+         **{k: v for k, v in tb.items() if k.startswith("backward_")})
+    rows.append(("flash_attention.flash_attention_backward_wgmma d16 "
+                 "bfloat16 smollm-135m reduced train_loop",
+                 "flash_attention_bwd_sm90", FLASH_BWD_REPLACES,
+                 d16_bwd_launches, tb["max_abs_err"], tb))
     for arch in TRAIN_ARCHS:
         kernel, per, steps = per_step[arch]
         cfg = get_arch(arch)

@@ -36,17 +36,23 @@
 // (S and dP twice, dQ), pass 2 four (S^T, dV, dP^T, dK). Atomics on dQ
 // would save three of them and make the sums' order depend on the
 // schedule; chip_smoke's dist phase compares two training steps to 1e-6
-// and reads 0.0, so the order is kept fixed instead.
+// and reads 0.0, so the order is kept fixed instead. FlashAttention-3's
+// deterministic backward, which keeps the order with counters and takes
+// dQ in pass 2 (seven products), ran slower than this on the card: its
+// fp32 dQ accumulator (67 MB at that shape, more than L2) is read and
+// written by every key tile in turn, and the key tiles wait on one
+// another (PERF.md).
 //
 // The design:
 //  * Pass 1, flash_bwd_dq: one CTA per (b * H + h, tile of 128 queries),
 //    two consumer warpgroups of 64 query rows and one producer warpgroup
 //    whose one thread starts every TMA copy (setmaxnreg: 24 registers for
 //    the producer, 240 for the consumers), as in the forward. The producer
-//    loads the Q and dO tiles once and streams K and V tiles of 64 keys
-//    through a 2-stage ring twice, one sweep after the other. Sweep 1:
-//    S = Q K^T and dP = dO V^T (wgmma m64n64k16, both operands in shared
-//    memory), the online max m and sum l as the forward keeps them, and
+//    loads the Q and dO tiles once and streams K and V tiles of kBN1 = 128
+//    keys through a 2-stage ring twice, one sweep after the other (128
+//    keys a tile ran 0.83 times as long as 64). Sweep 1: S = Q K^T and
+//    dP = dO V^T (wgmma m64n128k16, both operands in shared memory), the
+//    online max m and sum l as the forward keeps them, and
 //    Dacc = Dacc exp(m_old - m_new) + sum_j exp(s_j - m_new) dP_j, so that
 //    D = Dacc / l is rowsum(P * dP) in fp32 without a second pass; then
 //    lse = m * scale + log l (base 2, as the kernel's exp2). Sweep 2:
@@ -93,7 +99,7 @@ namespace {
 constexpr int kConsumers = 2;   // consumer warpgroups of 64 rows
 constexpr int kThreads = (kConsumers + 1) * 128;
 constexpr int kBM1 = 128;       // pass 1: queries per CTA
-constexpr int kBN1 = 64;        // pass 1: keys per tile
+constexpr int kBN1 = 128;       // pass 1: keys per tile (64 or 128)
 constexpr int kStages1 = 2;     // pass 1: K/V ring depth
 constexpr int kBN2 = 128;       // pass 2: keys per CTA
 constexpr int kBM2 = 64;        // pass 2: queries per tile
@@ -130,6 +136,21 @@ struct Tile {
                      8 * kSwBytes, kLayout);
   }
 };
+
+// a 64 x N fp32 product of two K-major operands from shared memory
+template <int N>
+__device__ void wgmma_kk(float (&d)[N / 2], uint64_t a, uint64_t b,
+                         int scale_d);
+template <>
+__device__ __forceinline__ void wgmma_kk<64>(float (&d)[32], uint64_t a,
+                                             uint64_t b, int scale_d) {
+  wgmma_ss_m64n64<0, 0>(d, a, b, scale_d);
+}
+template <>
+__device__ __forceinline__ void wgmma_kk<128>(float (&d)[64], uint64_t a,
+                                              uint64_t b, int scale_d) {
+  wgmma_ss_m64n128(d, a, b, scale_d);
+}
 
 __device__ __forceinline__ void init_barriers(uint32_t bar_once,
                                               uint32_t bar_full,
@@ -274,18 +295,18 @@ flash_bwd_dq(const __grid_constant__ CUtensorMap map_q,
       }
       mbar_wait(bar_full + 8 * s, (t / kStages1) & 1);
       if (kt < my_kt) {
-        // S = Q K^T and dP = dO V^T: 64 x 64 each, d deep
-        float sc[32], dp[32];
+        // S = Q K^T and dP = dO V^T: 64 x kBN1 each, d deep
+        float sc[kBN1 / 2], dp[kBN1 / 2];
         const uint32_t kb = sK + s * kKB, vb = sV + s * kKB;
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < T::kDT / 16; ++kk)
-          wgmma_ss_m64n64<0, 0>(sc, T::kmajor(qa, kBM1, kk),
-                                T::kmajor(kb, kBN1, kk), kk > 0);
+          wgmma_kk<kBN1>(sc, T::kmajor(qa, kBM1, kk), T::kmajor(kb, kBN1, kk),
+                         kk > 0);
 #pragma unroll
         for (int kk = 0; kk < T::kDT / 16; ++kk)
-          wgmma_ss_m64n64<0, 0>(dp, T::kmajor(da, kBM1, kk),
-                                T::kmajor(vb, kBN1, kk), kk > 0);
+          wgmma_kk<kBN1>(dp, T::kmajor(da, kBM1, kk), T::kmajor(vb, kBN1, kk),
+                         kk > 0);
         wgmma_commit();
         wgmma_wait_all();
         fence_operands(sc);
@@ -296,7 +317,7 @@ flash_bwd_dq(const __grid_constant__ CUtensorMap map_q,
         if (k0 + kBN1 > Skv ||
             (causal && k0 + kBN1 - 1 > first_row + q_offset)) {
 #pragma unroll
-          for (int i = 0; i < 8; ++i)
+          for (int i = 0; i < kBN1 / 8; ++i)
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               const int key = k0 + 8 * i + 2 * cq + (e & 1);
@@ -308,7 +329,7 @@ flash_bwd_dq(const __grid_constant__ CUtensorMap map_q,
         if (!sweep2) {
           float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-          for (int i = 0; i < 8; ++i) {
+          for (int i = 0; i < kBN1 / 8; ++i) {
             mx0 = fmaxf(mx0, fmaxf(sc[4 * i], sc[4 * i + 1]));
             mx1 = fmaxf(mx1, fmaxf(sc[4 * i + 2], sc[4 * i + 3]));
           }
@@ -327,7 +348,7 @@ flash_bwd_dq(const __grid_constant__ CUtensorMap map_q,
           m1 = mn1;
           float ps0 = 0.f, ps1 = 0.f, pd0 = 0.f, pd1 = 0.f;
 #pragma unroll
-          for (int i = 0; i < 8; ++i) {
+          for (int i = 0; i < kBN1 / 8; ++i) {
             const float p0 = exp2f(fmaf(sc[4 * i], scale_log2, -ms0));
             const float p1 = exp2f(fmaf(sc[4 * i + 1], scale_log2, -ms0));
             const float p2 = exp2f(fmaf(sc[4 * i + 2], scale_log2, -ms1));
@@ -344,9 +365,9 @@ flash_bwd_dq(const __grid_constant__ CUtensorMap map_q,
         } else {
           // dS = P (dP - D) scale, to bf16 as dQ's register A operand:
           // the accumulator of keys 16kk..16kk+15 is k-step kk's fragment
-          uint32_t pa[4][4];
+          uint32_t pa[kBN1 / 16][4];
 #pragma unroll
-          for (int i = 0; i < 8; ++i) {
+          for (int i = 0; i < kBN1 / 8; ++i) {
             const float p0 = exp2f(fmaf(sc[4 * i], scale_log2, -lse0));
             const float p1 = exp2f(fmaf(sc[4 * i + 1], scale_log2, -lse0));
             const float p2 = exp2f(fmaf(sc[4 * i + 2], scale_log2, -lse1));
@@ -358,7 +379,7 @@ flash_bwd_dq(const __grid_constant__ CUtensorMap map_q,
                 pack_bf16(p2 * (dp[4 * i + 2] - dd1) * scale,
                           p3 * (dp[4 * i + 3] - dd1) * scale);
           }
-          // dQ += dS K: K [64 keys][d], d contiguous (MN-major, trans-b)
+          // dQ += dS K: K [kBN1 keys][d], d contiguous (MN-major, trans-b)
           fence_operands(acc);
           wgmma_fence();
 #pragma unroll

@@ -1,6 +1,6 @@
 // The backward of the Mamba-2 SSD chunk scan for Hopper (sm_90a), bf16 on
-// the tensor cores, in five passes over chunks with no atomics, so that
-// reruns are bit-identical.
+// the tensor cores, in five passes over chunks with no atomics and every
+// sum in a fixed order, so that reruns are bit-identical.
 //
 // The JAX package has no backward kernel: it trains mamba2 by XLA's
 // autodiff of ssd_chunked (src/repro/models/ssm.py:85). This is the
@@ -28,11 +28,12 @@
 //     first, dS_c = Gh[c + 1] and Gh[c] = dh[c] + exp(T_c) Gh[c + 1]
 //     (Gh past the last chunk is 0: the final state has no cotangent);
 //     dS rounded to bf16 (the products take it);
-//  3. chunk_adjoint_wgmma, one warpgroup per (chunk, b * H + h), every
-//     product on wgmma m64n64k16 with fp32 accumulators:
-//       CB = C B^T, dM = dY X^T; M = CB . L . dt_j and D = dM . L . dt_j
-//       rounded to bf16; Z = D . CB (fp32), its row and column sums, and
-//       the column sums of dM . CB . L;
+//  3. chunk_adjoint_wgmma, two warpgroups per (chunk, b, hb heads of one
+//     group), every product on wgmma m64n64k16 with fp32 accumulators:
+//       CB = C B^T, once for the block's heads (it has no head in it);
+//     then per head, in head order: dM = dY X^T; M = CB . L . dt_j and
+//     D = dM . L . dt_j rounded to bf16; Z = D . CB (fp32), its row and
+//     column sums, and the column sums of dM . CB . L;
 //       dX = M^T dY + w_j (B dS^T), dw_j = <x_j, (B dS^T)_j>;
 //       dB = D^T C + w_j (X dS^T);
 //       dC = D B + e^cum_i (dY h_in^T), and <dC's carry-in row, C_i>;
@@ -40,9 +41,21 @@
 //       dcum = rowsum(Z) - colsum(Z) + the carry-in dots - dw . w;
 //       da = the reverse running sum of dcum + dT, ddt = colsum(dM . CB
 //       . L) + dw exp(T - cum) + A da, and the chunk's sum of dt . da;
-//     dx and ddt are written once; dB and dC go to fp32 partials per head;
-//  4. group_sum: dB and dC summed over each group's heads in head order;
-//     dA_sum: dA_h summed over b and the chunks in order.
+//     the two terms of dX, of dB and of dC each go to the tensor cores as
+//     one group. Warpgroup 0 takes the diagonal term while warpgroup 1
+//     takes <h_in, dS>; then each takes every other 64-column tile of dC
+//     and dB, and warpgroup 1 dX. dx and ddt are written once; dB and dC
+//     are summed over the block's heads in fp32, in head order (each
+//     thread's own floats in shared memory, in the warpgroup that takes the
+//     tile), and written once a block: fp32 partials [B, L, G,
+//     H / (G hb), N], or bf16 dB and dC where hb = H / G. B and C are
+//     staged once a block, and the next head's X, dY, h_in, dS and dt by
+//     cp.async into a second buffer while this head computes (where two
+//     buffers fit in shared memory: at P = N = 128 one does);
+//  4. group_sum (only where a group has more than one block): dB and dC
+//     summed over a group's blocks in block order, so every head's terms
+//     are summed in head order; dA_sum: dA_h summed over b and the chunks
+//     in order.
 // Each sum inside a block runs in a fixed order (warp shuffles in a fixed
 // pattern, then the warps in order), so the result does not depend on
 // the schedule.
@@ -51,19 +64,21 @@
 // H 64, P 64, N 128, G 1) the function reads x, dt, A, B, C and dy once
 // and writes their gradients once: 213.9 MB, 0.064 ms at 3.35 TB/s; its
 // least work, the recurrence's adjoint, 2 x 4 N P flops per step and
-// head (0.035 ms at 989 TFLOP/s). This design moves far more: the states
+// head (0.035 ms at 989 TFLOP/s). This design moves more: the states
 // (fp32 and bf16 h_in, dh and dS: 4 + 2 + 4 + 2 bytes per state element,
-// 805 MB) and the per-head fp32 partials of dB and dC (537 MB written and
-// read again). Why per-head partials: at G = 1 all 64 heads share B and
-// C, so dB and dC are 64-way sums; a block that looped over a group's
-// heads would leave 128 blocks for 132 SMs at that shape, where the
-// partials keep 8,192 blocks in flight and cost two passes over 537 MB.
+// 805 MB), B and C staged once per block (268 / hb MB), and the fp32
+// partials of dB and dC (537 / hb MB written and read again). Why hb =
+// kHeadsPerBlock = 16: at G = 1 all 64 heads share B and C, so dB and dC
+// are 64-way sums; one head a block wrote them as 537 MB of per-head
+// partials and staged the same B and C, and took the same CB, 64 times. A
+// block that walked all 64 heads would leave 128 blocks for 132 SMs; 16
+// heads leave 512, and ran fastest of 4, 8 and 16 (PERF.md).
 //
 // Tiles are staged by cp.async into 128-byte-swizzled shared memory
 // (ssd_chunk.cuh); P and N are padded with zeros there, so the caller
 // pads nothing. M and D go from their accumulators to shared memory as
 // bf16 for the products that take them transposed (M^T dY, D^T C); D is
-// also D B's register A operand.
+// also D B's K-major A operand.
 //
 // Plain C interface, loaded with ctypes. The launches go to the caller's
 // stream; nothing here allocates or synchronises: the caller passes the
@@ -247,18 +262,70 @@ state_pass_reverse(const float* __restrict__ dh,
 
 // ---- 3. the adjoint of each chunk ---------------------------------------------
 
-// the bytes of chunk_adjoint_wgmma's shared memory: 1,024 of slack to
-// align the tiles; X, dY [kQ][PC], B, C [kQ][NC], h_in, dS [NC][PC], M, D
-// [kQ][kQ] in bf16; 12 float vectors of kQ and 4 floats
-__host__ __device__ constexpr size_t adjoint_smem(int NC, int PC) {
-  return 1024 + 2 * ((size_t)2 * kQ * PC + (size_t)2 * kQ * NC +
-                     (size_t)2 * NC * PC + (size_t)2 * kQ * kQ) +
-         4 * ((size_t)12 * kQ + 4);
+// the most heads of one group that a chunk_adjoint_wgmma block walks; a
+// launch takes the largest power of 2 up to it that divides H / G
+constexpr int kHeadsPerBlock = 16;
+constexpr int kAdjThreads = 2 * kWgThreads;   // two warpgroups
+constexpr size_t kMaxSmem = 232448;   // a block's dynamic shared memory
+
+// the bytes of chunk_adjoint_wgmma's shared memory with `bufs` buffers of
+// a head's tiles: 1,024 of slack to align the tiles; B, C [kQ][NC]; per
+// buffer X, dY [kQ][PC] and h_in, dS [NC][PC]; M, D [kQ][kQ], all bf16;
+// the fp32 sums of dB and dC over the block's heads, NC / 64 x 2 tiles of
+// 32 floats for each thread of a warpgroup; a dt vector of kQ per buffer,
+// 12 more float vectors of kQ and 4 floats
+__host__ __device__ constexpr size_t adjoint_smem(int NC, int PC, int bufs) {
+  return 1024 +
+         2 * ((size_t)2 * kQ * NC +
+              (size_t)bufs * (2 * kQ * PC + 2 * NC * PC) +
+              (size_t)2 * kQ * kQ) +
+         4 * ((size_t)NC / 64 * 2 * 32 * kWgThreads + (size_t)14 * kQ + 4);
 }
 
-// grid (n_chunks, B*H), one warpgroup: warp w holds the accumulator rows
-// 16 w + lane / 4 and + 8, columns 8 nb + 2 (lane % 4) + e % 2
-__global__ void __launch_bounds__(kWgThreads)
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void zero(float (&acc)[32]) {
+#pragma unroll
+  for (int q = 0; q < 32; ++q) acc[q] = 0.f;
+}
+
+// the 64 x 64 accumulator tile nt (rows j, columns 64 nt + 8 nb + 2 cq +
+// e % 2) to bf16 rows of `stride` elements: rows < nv, columns < W
+__device__ __forceinline__ void store_bf16(const float (&acc)[32],
+                                           __nv_bfloat16* out,
+                                           int64_t stride, int ct, int r0,
+                                           int cq, int nv, int W) {
+#pragma unroll
+  for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+    for (int hrow = 0; hrow < 2; ++hrow) {
+      const int r = r0 + 8 * hrow;
+      const int c = 64 * ct + 8 * nb + 2 * cq;
+      if (r >= nv || c >= W) continue;
+      __nv_bfloat16* o = out + r * stride + c;
+      const float a0 = acc[4 * nb + 2 * hrow], a1 = acc[4 * nb + 2 * hrow + 1];
+      if (W % 2 == 0) {
+        *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(a0, a1);
+      } else {
+        o[0] = __float2bfloat16(a0);
+        if (c + 1 < W) o[1] = __float2bfloat16(a1);
+      }
+    }
+}
+
+// grid (n_chunks, B * H / hb), two warpgroups: warp w of each holds the
+// accumulator rows 16 w + lane / 4 and + 8, columns 8 nb + 2 (lane % 4) +
+// e % 2. The block walks heads h0 .. h0 + hb - 1 of one group in order (h0
+// a multiple of hb, which divides H / G). Per head, warpgroup 0 takes the
+// diagonal term while warpgroup 1 takes <h_in, dS>; then warpgroup w takes
+// the 64-column tiles nt = w, w + 2 of dC and dB, and warpgroup 1 dX. dB
+// and dC are summed over the heads in fp32 in head order, a tile's sum
+// kept by the warpgroup that takes it, and written once: to the fp32
+// partials [B, L, G, H / (G hb), N] or, where hb = H / G, in bf16 to dB,
+// dC [B, L, G, N].
+__global__ void __launch_bounds__(kAdjThreads)
 chunk_adjoint_wgmma(const __nv_bfloat16* __restrict__ x,
                     const float* __restrict__ dt, const float* __restrict__ A,
                     const __nv_bfloat16* __restrict__ Bm,
@@ -268,361 +335,434 @@ chunk_adjoint_wgmma(const __nv_bfloat16* __restrict__ x,
                     const __nv_bfloat16* __restrict__ ds,
                     __nv_bfloat16* __restrict__ dx, float* __restrict__ ddt,
                     float* __restrict__ dB_part, float* __restrict__ dC_part,
+                    __nv_bfloat16* __restrict__ dB,
+                    __nv_bfloat16* __restrict__ dC,
                     float* __restrict__ dA_part, int64_t L, int64_t H,
-                    int64_t G, int P, int N) {
+                    int64_t G, int P, int N, int hb, int bufs) {
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const int NC = round_up(N, 64), PC = round_up(P, 64);
   const int NK = round_up(N, 16), PK = round_up(P, 16);
-  __nv_bfloat16* Xs = reinterpret_cast<__nv_bfloat16*>(align1024(smem_raw));
-  __nv_bfloat16* Ys = Xs + kQ * PC;   // dY [i][p]
-  __nv_bfloat16* Bs = Ys + kQ * PC;   // B [j][n]
-  __nv_bfloat16* Cs = Bs + kQ * NC;   // C [i][n]
-  __nv_bfloat16* Hs = Cs + kQ * NC;   // h_in [n][p]
-  __nv_bfloat16* Ss = Hs + NC * PC;   // dS [n][p]
-  __nv_bfloat16* Ms = Ss + NC * PC;   // M [i][j]
+  const int per_buf = 2 * kQ * PC + 2 * NC * PC;   // a head's tiles
+  __nv_bfloat16* Bs = reinterpret_cast<__nv_bfloat16*>(align1024(smem_raw));
+  __nv_bfloat16* Cs = Bs + kQ * NC;      // C [i][n]
+  __nv_bfloat16* heads = Cs + kQ * NC;   // [buffer]: X, dY, h_in, dS
+  __nv_bfloat16* Ms = heads + bufs * per_buf;   // M [i][j]
   __nv_bfloat16* Ds = Ms + kQ * kQ;   // D = dM . L . dt [i][j]
-  float* dts = reinterpret_cast<float*>(Ds + kQ * kQ);
-  float* cum = dts + kQ;
+  float* sums = reinterpret_cast<float*>(Ds + kQ * kQ);
+  float* dtb = sums + NC / 64 * 2 * 32 * kWgThreads;   // [buffer][kQ]
+  float* cum = dtb + 2 * kQ;
   float* ws = cum + kQ;       // w_j
   float* rowz = ws + kQ;      // sum_j Z[i][j]
   float* colz = rowz + kQ;    // sum_i Z[i][j]
   float* colw = colz + kQ;    // sum_i (dM . CB . L)[i][j]
-  float* dcin = colw + kQ;    // the carry-in term of dcum_i
-  float* dws = dcin + kQ;     // dw_j
+  float* dcin = colw + kQ;    // [warpgroup][kQ]: the carry-in term of dcum_i
+  float* dws = dcin + 2 * kQ;   // dw_j
   float* partz = dws + kQ;    // [2 halves][kQ]: column sums, warps 0-1 / 2-3
   float* partw = partz + 2 * kQ;
   float* red = partw + 2 * kQ;   // [4]: <h_in, dS> per warp
 
-  const Chunk ch(L, H, G);
-  const int64_t xo = ((ch.b * L + ch.t0) * H + ch.h) * P;
-  const int64_t bo = ((ch.b * L + ch.t0) * G + ch.g) * N;
-  const int64_t so = (ch.bh * gridDim.x + blockIdx.x) * (int64_t)N * P;
-  stage_sw128(Xs, x + xo, H * P, P, PC, kQ, ch.nv);
-  stage_sw128(Ys, dy + xo, H * P, P, PC, kQ, ch.nv);
-  stage_sw128(Bs, Bm + bo, G * N, N, NC, kQ, ch.nv);
-  stage_sw128(Cs, Cm + bo, G * N, N, NC, kQ, ch.nv);
-  stage_sw128(Hs, hin + so, P, P, PC, NC, N);
-  stage_sw128(Ss, ds + so, P, P, PC, NC, N);
-  stage_dt(dts, dt, ch, L, H);
-  cp_async_wait();
-  fence_proxy_async();
-  __syncthreads();
-  chunk_cumsum(dts, A[ch.h], cum);
-  __syncthreads();
-  const float total = cum[kQ - 1];
-  if (threadIdx.x < kQ)
-    ws[threadIdx.x] = dts[threadIdx.x] * expf(total - cum[threadIdx.x]);
+  const int64_t nc = gridDim.x, c = blockIdx.x;
+  const int64_t blocks_b = H / hb;   // blocks of one batch row
+  const int64_t b = blockIdx.y / blocks_b;
+  const int64_t h0 = (blockIdx.y % blocks_b) * hb;
+  const int64_t rep = H / G, g = h0 / rep;
+  const int64_t n_part = rep / hb, part = (h0 % rep) / hb;
+  const int64_t t0 = c * kQ;
+  const int nv = static_cast<int>(L - t0 < kQ ? L - t0 : kQ);
+  const int64_t bo = ((b * L + t0) * G + g) * N;
+  // the block's first head: its rows of x, dy, dx, its dt and ddt, its
+  // states; the next head's are P, 1, 1 and nc N P further on
+  const int64_t xo = ((b * L + t0) * H + h0) * P;
+  const int64_t to = (b * L + t0) * H + h0;
+  const int64_t so = ((b * H + h0) * nc + c) * (int64_t)N * P;
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // head i's X, dY, h_in, dS and dt into buffer u, one cp.async group
+  auto stage_head = [&](int i, int u) {
+    __nv_bfloat16* Xs = heads + u * per_buf;
+    const int64_t sh = so + i * nc * (int64_t)N * P;
+    stage_sw128(Xs, x + xo + i * P, H * P, P, PC, kQ, nv);
+    stage_sw128(Xs + kQ * PC, dy + xo + i * P, H * P, P, PC, kQ, nv);
+    stage_sw128(Xs + 2 * kQ * PC, hin + sh, P, P, PC, NC, N);
+    stage_sw128(Xs + 2 * kQ * PC + NC * PC, ds + sh, P, P, PC, NC, N);
+    if (threadIdx.x < kQ) {
+      const bool ok = (int)threadIdx.x < nv;
+      cp_async4(dtb + u * kQ + threadIdx.x,
+                ok ? dt + to + i + threadIdx.x * H : dt, ok);
+    }
+    cp_async_commit();
+  };
+  stage_sw128(Bs, Bm + bo, G * N, N, NC, kQ, nv);
+  stage_sw128(Cs, Cm + bo, G * N, N, NC, kQ, nv);
+  stage_head(0, 0);   // one group with B and C
+
+  const int wg = threadIdx.x / kWgThreads, tid = threadIdx.x % kWgThreads;
+  const int warp = tid / 32, lane = tid % 32;
   const int cq = lane % 4;
   const int r0 = 16 * warp + lane / 4, r1 = r0 + 8;
-  const uint32_t xs = smem_u32(Xs), ys = smem_u32(Ys), bs = smem_u32(Bs),
-                 cs = smem_u32(Cs), hs = smem_u32(Hs), ss = smem_u32(Ss),
-                 msa = smem_u32(Ms), dsa = smem_u32(Ds);
+  const uint32_t bs = smem_u32(Bs), cs = smem_u32(Cs), msa = smem_u32(Ms),
+                 dsa = smem_u32(Ds);
   const uint32_t kState = NC * 128;   // bytes of a 64-column chunk of NC rows
+  const int64_t rowBC = G * n_part * N;   // the partials' row stride
+  float cb[32];   // CB = C B^T (rows i, columns j), the same for every head
 
-  // -- the diagonal term: CB = C B^T and dM = dY X^T (rows i, columns j)
-  uint32_t da[4][4];   // D as the register A operand of D B
-  {
-    float g[32], m[32];
-    wgmma_fence();
-    for (int kk = 0; kk < NK / 16; ++kk) {
-      const uint32_t off = (kk / 4) * kTile + (kk % 4) * 32;
-      wgmma_ss_m64n64<0, 0>(g, make_desc(cs + off, 16, 1024, 1),
-                            make_desc(bs + off, 16, 1024, 1), kk > 0);
-    }
-    for (int kk = 0; kk < PK / 16; ++kk) {
-      const uint32_t off = (kk / 4) * kTile + (kk % 4) * 32;
-      wgmma_ss_m64n64<0, 0>(m, make_desc(ys + off, 16, 1024, 1),
-                            make_desc(xs + off, 16, 1024, 1), kk > 0);
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_operands(g);
-    fence_operands(m);
-    float rz0 = 0.f, rz1 = 0.f, cz[16], cw[16];
+  // head i's dB (which 0) or dC (1) tile nt in acc, added to the heads'
+  // running sum before it (this thread's own floats in `sums`); the last
+  // head writes the block's sum
+  auto accumulate = [&](float (&acc)[32], int i, int nt, int which) {
+    float* s = sums + (nt * 2 + which) * 32 * kWgThreads + tid;
+    if (i > 0) {
 #pragma unroll
-    for (int nb = 0; nb < 8; ++nb) {
-      float mv[4], dv[4];
+      for (int q = 0; q < 32; ++q) acc[q] += s[q * kWgThreads];
+    }
+    if (i + 1 < hb) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e < 2 ? r0 : r1;
-        const int j = 8 * nb + 2 * cq + (e & 1);
-        const int at = 4 * nb + e;
-        float z = 0.f, wz = 0.f;
-        mv[e] = dv[e] = 0.f;
-        if (j <= i) {   // exp(cum_i - cum_j) overflows above the diagonal
-          const float l = expf(cum[i] - cum[j]);
-          const float cbl = g[at] * l;
-          mv[e] = cbl * dts[j];
-          dv[e] = m[at] * l * dts[j];
-          z = dv[e] * g[at];
-          wz = m[at] * cbl;
-        }
-        if (e < 2)
-          rz0 += z;
-        else
-          rz1 += z;
-        if (e < 2) {
-          cz[2 * nb + e] = z;
-          cw[2 * nb + e] = wz;
-        } else {
-          cz[2 * nb + e - 2] += z;
-          cw[2 * nb + e - 2] += wz;
+      for (int q = 0; q < 32; ++q) s[q * kWgThreads] = acc[q];
+    } else if (n_part == 1) {
+      store_bf16(acc, (which ? dC : dB) + bo, G * N, nt, r0, cq, nv, N);
+    } else {
+      store_f32(acc,
+                (which ? dC_part : dB_part) +
+                    ((b * L + t0) * G + g) * n_part * N + part * N,
+                rowBC, nt, r0, cq, nv, N);
+    }
+  };
+
+  // every accumulator is zeroed before its product: in this loop an
+  // uninitialised one would read as carried from the last head, and keep
+  // every accumulator's registers live across the loop
+#pragma unroll 1
+  for (int i = 0; i < hb; ++i) {
+    const int u = bufs == 2 ? i & 1 : 0;
+    const int64_t h = h0 + i;
+    if (bufs == 2 && i + 1 < hb) {   // the next head's tiles, in flight
+      stage_head(i + 1, u ^ 1);      // while this head computes
+      cp_async_wait_group<1>();
+    } else {
+      cp_async_wait_group<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();
+    __nv_bfloat16* Xs = heads + u * per_buf;
+    __nv_bfloat16* Ys = Xs + kQ * PC;   // dY [i][p]
+    __nv_bfloat16* Hs = Ys + kQ * PC;   // h_in [n][p]
+    __nv_bfloat16* Ss = Hs + NC * PC;   // dS [n][p]
+    const float* dts = dtb + u * kQ;
+    const uint32_t xs = smem_u32(Xs), ys = smem_u32(Ys), hs = smem_u32(Hs),
+                   ss = smem_u32(Ss);
+    chunk_cumsum(dts, A[h], cum);
+    __syncthreads();
+    const float total = cum[kQ - 1];
+    if (threadIdx.x < kQ)
+      ws[threadIdx.x] = dts[threadIdx.x] * expf(total - cum[threadIdx.x]);
+
+    // -- warpgroup 0: the diagonal term, CB = C B^T (the first head) and
+    // dM = dY X^T (rows i, columns j), one group
+    if (wg == 0) {
+      float m[32];
+      zero(m);
+      if (i == 0) zero(cb);
+      fence_operands(m);
+      fence_operands(cb);
+      wgmma_fence();
+      if (i == 0) {
+        for (int kk = 0; kk < NK / 16; ++kk) {
+          const uint32_t off = (kk / 4) * kTile + (kk % 4) * 32;
+          wgmma_ss_m64n64<0, 0>(cb, make_desc(cs + off, 16, 1024, 1),
+                                make_desc(bs + off, 16, 1024, 1), kk > 0);
         }
       }
-      const int j = 8 * nb + 2 * cq;
-      put_pair(Ms, kQ, r0, j, mv[0], mv[1]);   // rounding points
-      put_pair(Ms, kQ, r1, j, mv[2], mv[3]);
-      put_pair(Ds, kQ, r0, j, dv[0], dv[1]);
-      put_pair(Ds, kQ, r1, j, dv[2], dv[3]);
-      da[nb / 2][(nb % 2) * 2] = pack_bf16(dv[0], dv[1]);
-      da[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(dv[2], dv[3]);
+      for (int kk = 0; kk < PK / 16; ++kk) {
+        const uint32_t off = (kk / 4) * kTile + (kk % 4) * 32;
+        wgmma_ss_m64n64<0, 0>(m, make_desc(ys + off, 16, 1024, 1),
+                              make_desc(xs + off, 16, 1024, 1), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_operands(cb);
+      fence_operands(m);
+      float rz0 = 0.f, rz1 = 0.f, cz[16], cw[16];
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {
+        float mv[4], dv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ii = e < 2 ? r0 : r1;
+          const int j = 8 * nb + 2 * cq + (e & 1);
+          const int at = 4 * nb + e;
+          float z = 0.f, wz = 0.f;
+          mv[e] = dv[e] = 0.f;
+          if (j <= ii) {   // exp(cum_i - cum_j) overflows above the diagonal
+            const float l = expf(cum[ii] - cum[j]);
+            const float cbl = cb[at] * l;
+            mv[e] = cbl * dts[j];
+            dv[e] = m[at] * l * dts[j];
+            z = dv[e] * cb[at];
+            wz = m[at] * cbl;
+          }
+          if (e < 2)
+            rz0 += z;
+          else
+            rz1 += z;
+          if (e < 2) {
+            cz[2 * nb + e] = z;
+            cw[2 * nb + e] = wz;
+          } else {
+            cz[2 * nb + e - 2] += z;
+            cw[2 * nb + e - 2] += wz;
+          }
+        }
+        const int j = 8 * nb + 2 * cq;
+        put_pair(Ms, kQ, r0, j, mv[0], mv[1]);   // rounding points
+        put_pair(Ms, kQ, r1, j, mv[2], mv[3]);
+        put_pair(Ds, kQ, r0, j, dv[0], dv[1]);
+        put_pair(Ds, kQ, r1, j, dv[2], dv[3]);
+      }
+      rz0 = quad_sum(rz0);
+      rz1 = quad_sum(rz1);
+      if (cq == 0) {
+        rowz[r0] = rz0;
+        rowz[r1] = rz1;
+      }
+      // a column's 16 rows of this warp lie in the 8 lane groups lane / 4
+#pragma unroll
+      for (int cc = 0; cc < 16; ++cc)
+#pragma unroll
+        for (int w = 4; w < 32; w <<= 1) {
+          cz[cc] += __shfl_xor_sync(0xffffffffu, cz[cc], w);
+          cw[cc] += __shfl_xor_sync(0xffffffffu, cw[cc], w);
+        }
+      // warps 0 and 1 write their columns, then 2 and 3 add theirs in
+      // order: (w0 + w2) + (w1 + w3) by half, a fixed order
+      for (int half = 0; half < 2; ++half) {
+        if (lane < 4 && warp / 2 == half) {
+#pragma unroll
+          for (int cc = 0; cc < 16; ++cc) {
+            const int j = 8 * (cc / 2) + 2 * lane + (cc & 1);
+            float* pz = partz + (warp % 2) * kQ + j;
+            float* pw = partw + (warp % 2) * kQ + j;
+            *pz = half ? *pz + cz[cc] : cz[cc];
+            *pw = half ? *pw + cw[cc] : cw[cc];
+          }
+        }
+        named_sync(1, kWgThreads);
+      }
+      if (threadIdx.x < kQ) {
+        colz[threadIdx.x] = partz[threadIdx.x] + partz[kQ + threadIdx.x];
+        colw[threadIdx.x] = partw[threadIdx.x] + partw[kQ + threadIdx.x];
+      }
+    } else {
+      // -- warpgroup 1: <h_in, dS> over the chunk's state: both tiles share
+      // one layout, so their 16-byte vectors pair up wherever they lie
+      float hd = 0.f;
+      for (int v = tid; v < NC * PC / 8; v += kWgThreads) {
+        const uint4 hv = reinterpret_cast<const uint4*>(Hs)[v];
+        const uint4 sv = reinterpret_cast<const uint4*>(Ss)[v];
+        const __nv_bfloat162* h2 =
+            reinterpret_cast<const __nv_bfloat162*>(&hv);
+        const __nv_bfloat162* s2 =
+            reinterpret_cast<const __nv_bfloat162*>(&sv);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float2 a = __bfloat1622float2(h2[q]),
+                       bb = __bfloat1622float2(s2[q]);
+          hd += a.x * bb.x + a.y * bb.y;
+        }
+      }
+      hd = warp_sum(hd);
+      if (lane == 0) red[warp] = hd;
     }
-    rz0 = quad_sum(rz0);
-    rz1 = quad_sum(rz1);
+    fence_proxy_async();   // M and D, written by the threads, read by wgmma
+    __syncthreads();
+
+    // -- dC = D B + e^cum_i (dY h_in^T), per 64 columns of n (this
+    // warpgroup's), both terms in one group; the carry-in term of dcum_i =
+    // <e^cum_i (dY h_in^T)_i, C_i>
+    const float e0 = expf(cum[r0]), e1 = expf(cum[r1]);
+    const float w0 = ws[r0], w1 = ws[r1];
+    float ci0 = 0.f, ci1 = 0.f;
+    for (int nt = wg; nt < NC / 64; nt += 2) {
+      float acc[32], t[32];
+      zero(acc);
+      zero(t);
+      fence_operands(acc);
+      fence_operands(t);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kQ / 16; ++kk)   // D [i][j], K-major; B MN-major
+        wgmma_ss_m64n64<0, 1>(
+            acc, make_desc(dsa + kk * 32, 16, 1024, 1),
+            make_desc(bs + nt * kTile + kk * 2048, kTile, 1024, 1), kk > 0);
+      for (int kk = 0; kk < PK / 16; ++kk)
+        wgmma_ss_m64n64<0, 0>(
+            t, make_desc(ys + (kk / 4) * kTile + (kk % 4) * 32, 16, 1024, 1),
+            make_desc(hs + (kk / 4) * kState + nt * 64 * 128 + (kk % 4) * 32,
+                      16, 1024, 1),
+            kk > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_operands(acc);
+      fence_operands(t);
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {
+        const int n = 64 * nt + 8 * nb + 2 * cq;
+        const float2 c0 = get_pair(Cs, kQ, r0, n), c1 = get_pair(Cs, kQ, r1, n);
+        const float v0 = t[4 * nb] * e0, v1 = t[4 * nb + 1] * e0;
+        const float v2 = t[4 * nb + 2] * e1, v3 = t[4 * nb + 3] * e1;
+        ci0 += v0 * c0.x + v1 * c0.y;
+        ci1 += v2 * c1.x + v3 * c1.y;
+        acc[4 * nb] += v0;
+        acc[4 * nb + 1] += v1;
+        acc[4 * nb + 2] += v2;
+        acc[4 * nb + 3] += v3;
+      }
+      accumulate(acc, i, nt, 1);
+    }
+    ci0 = quad_sum(ci0);
+    ci1 = quad_sum(ci1);
     if (cq == 0) {
-      rowz[r0] = rz0;
-      rowz[r1] = rz1;
+      dcin[wg * kQ + r0] = ci0;
+      dcin[wg * kQ + r1] = ci1;
     }
-    // a column's 16 rows of this warp lie in the 8 lane groups lane / 4
+
+    // -- dB = D^T C + w_j (X dS^T), per 64 columns of n (this
+    // warpgroup's; rows j), both terms in one group
+    for (int nt = wg; nt < NC / 64; nt += 2) {
+      float acc[32], t[32];
+      zero(acc);
+      zero(t);
+      fence_operands(acc);
+      fence_operands(t);
+      wgmma_fence();
 #pragma unroll
-    for (int c = 0; c < 16; ++c)
+      for (int kk = 0; kk < kQ / 16; ++kk)
+        wgmma_ss_m64n64<1, 1>(
+            acc, make_desc(dsa + kk * 2048, kTile, 1024, 1),
+            make_desc(cs + nt * kTile + kk * 2048, kTile, 1024, 1), kk > 0);
+      for (int kk = 0; kk < PK / 16; ++kk)
+        wgmma_ss_m64n64<0, 0>(
+            t, make_desc(xs + (kk / 4) * kTile + (kk % 4) * 32, 16, 1024, 1),
+            make_desc(ss + (kk / 4) * kState + nt * 64 * 128 + (kk % 4) * 32,
+                      16, 1024, 1),
+            kk > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_operands(acc);
+      fence_operands(t);
 #pragma unroll
-      for (int w = 4; w < 32; w <<= 1) {
-        cz[c] += __shfl_xor_sync(0xffffffffu, cz[c], w);
-        cw[c] += __shfl_xor_sync(0xffffffffu, cw[c], w);
+      for (int nb = 0; nb < 8; ++nb) {
+        acc[4 * nb] += w0 * t[4 * nb];
+        acc[4 * nb + 1] += w0 * t[4 * nb + 1];
+        acc[4 * nb + 2] += w1 * t[4 * nb + 2];
+        acc[4 * nb + 3] += w1 * t[4 * nb + 3];
       }
-    // warps 0 and 1 write their columns, then 2 and 3 add theirs in
-    // order: (w0 + w2) + (w1 + w3) by half, a fixed order
-    for (int half = 0; half < 2; ++half) {
-      if (lane < 4 && warp / 2 == half) {
+      accumulate(acc, i, nt, 0);
+    }
+
+    if (wg == 1) {
+      // -- warpgroup 1: dX = M^T dY + w_j (B dS^T), per 64 columns of p
+      // (rows j), both terms in one group; dw_j = <x_j, (B dS^T)_j>
+      float dw0 = 0.f, dw1 = 0.f;
+      __nv_bfloat16* dxb = dx + xo + i * P;
+      for (int pt = 0; pt < PC / 64; ++pt) {
+        float acc[32], t[32];
+        zero(acc);
+        zero(t);
+        fence_operands(acc);
+        fence_operands(t);
+        wgmma_fence();
 #pragma unroll
-        for (int c = 0; c < 16; ++c) {
-          const int j = 8 * (c / 2) + 2 * lane + (c & 1);
-          float* pz = partz + (warp % 2) * kQ + j;
-          float* pw = partw + (warp % 2) * kQ + j;
-          *pz = half ? *pz + cz[c] : cz[c];
-          *pw = half ? *pw + cw[c] : cw[c];
+        for (int kk = 0; kk < kQ / 16; ++kk)
+          wgmma_ss_m64n64<1, 1>(
+              acc, make_desc(msa + kk * 2048, kTile, 1024, 1),
+              make_desc(ys + pt * kTile + kk * 2048, kTile, 1024, 1), kk > 0);
+        for (int kk = 0; kk < NK / 16; ++kk)
+          wgmma_ss_m64n64<0, 1>(
+              t, make_desc(bs + (kk / 4) * kTile + (kk % 4) * 32, 16, 1024, 1),
+              make_desc(ss + pt * kState + kk * 2048, kState, 1024, 1), kk > 0);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_operands(acc);
+        fence_operands(t);
+#pragma unroll
+        for (int nb = 0; nb < 8; ++nb) {
+          const int p = 64 * pt + 8 * nb + 2 * cq;
+          const float2 x0 = get_pair(Xs, kQ, r0, p), x1 = get_pair(Xs, kQ, r1, p);
+          dw0 += x0.x * t[4 * nb] + x0.y * t[4 * nb + 1];
+          dw1 += x1.x * t[4 * nb + 2] + x1.y * t[4 * nb + 3];
+          acc[4 * nb] += w0 * t[4 * nb];
+          acc[4 * nb + 1] += w0 * t[4 * nb + 1];
+          acc[4 * nb + 2] += w1 * t[4 * nb + 2];
+          acc[4 * nb + 3] += w1 * t[4 * nb + 3];
         }
+        store_bf16(acc, dxb, H * P, pt, r0, cq, nv, P);
       }
-      __syncthreads();
-    }
-    if (threadIdx.x < kQ) {
-      colz[threadIdx.x] = partz[threadIdx.x] + partz[kQ + threadIdx.x];
-      colw[threadIdx.x] = partw[threadIdx.x] + partw[kQ + threadIdx.x];
-    }
-  }
-  fence_proxy_async();   // M and D, written by the threads, read by wgmma
-  __syncthreads();
-
-  // -- dC = D B + e^cum_i (dY h_in^T), per 64 columns of n; the carry-in
-  // term of dcum_i = <e^cum_i (dY h_in^T)_i, C_i>
-  const float e0 = expf(cum[r0]), e1 = expf(cum[r1]);
-  const float w0 = ws[r0], w1 = ws[r1];
-  const int64_t rowBC = H * N;   // the partials' row stride
-  float ci0 = 0.f, ci1 = 0.f;
-  for (int nt = 0; nt < NC / 64; ++nt) {
-    float acc[32], t[32];
-#pragma unroll
-    for (int u = 0; u < 32; ++u) acc[u] = 0.f;
-    fence_operands(acc);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kQ / 16; ++kk)
-      wgmma_rs_m64n64_tb(acc, da[kk],
-                         make_desc(bs + nt * kTile + kk * 2048, kTile, 1024,
-                                   1));
-    for (int kk = 0; kk < PK / 16; ++kk)
-      wgmma_ss_m64n64<0, 0>(
-          t, make_desc(ys + (kk / 4) * kTile + (kk % 4) * 32, 16, 1024, 1),
-          make_desc(hs + (kk / 4) * kState + nt * 64 * 128 + (kk % 4) * 32,
-                    16, 1024, 1),
-          kk > 0);
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_operands(acc);
-    fence_operands(t);
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb) {
-      const int n = 64 * nt + 8 * nb + 2 * cq;
-      const float2 c0 = get_pair(Cs, kQ, r0, n), c1 = get_pair(Cs, kQ, r1, n);
-      const float v0 = t[4 * nb] * e0, v1 = t[4 * nb + 1] * e0;
-      const float v2 = t[4 * nb + 2] * e1, v3 = t[4 * nb + 3] * e1;
-      ci0 += v0 * c0.x + v1 * c0.y;
-      ci1 += v2 * c1.x + v3 * c1.y;
-      acc[4 * nb] += v0;
-      acc[4 * nb + 1] += v1;
-      acc[4 * nb + 2] += v2;
-      acc[4 * nb + 3] += v3;
-    }
-    store_f32(acc, dC_part + ((ch.b * L + ch.t0) * H + ch.h) * N, rowBC, nt,
-              r0, cq, ch.nv, N);
-  }
-  ci0 = quad_sum(ci0);
-  ci1 = quad_sum(ci1);
-  if (cq == 0) {
-    dcin[r0] = ci0;
-    dcin[r1] = ci1;
-  }
-
-  // -- dB = D^T C + w_j (X dS^T), per 64 columns of n (rows j)
-  for (int nt = 0; nt < NC / 64; ++nt) {
-    float acc[32], t[32];
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kQ / 16; ++kk)
-      wgmma_ss_m64n64<1, 1>(
-          acc, make_desc(dsa + kk * 2048, kTile, 1024, 1),
-          make_desc(cs + nt * kTile + kk * 2048, kTile, 1024, 1), kk > 0);
-    for (int kk = 0; kk < PK / 16; ++kk)
-      wgmma_ss_m64n64<0, 0>(
-          t, make_desc(xs + (kk / 4) * kTile + (kk % 4) * 32, 16, 1024, 1),
-          make_desc(ss + (kk / 4) * kState + nt * 64 * 128 + (kk % 4) * 32,
-                    16, 1024, 1),
-          kk > 0);
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_operands(acc);
-    fence_operands(t);
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb) {
-      acc[4 * nb] += w0 * t[4 * nb];
-      acc[4 * nb + 1] += w0 * t[4 * nb + 1];
-      acc[4 * nb + 2] += w1 * t[4 * nb + 2];
-      acc[4 * nb + 3] += w1 * t[4 * nb + 3];
-    }
-    store_f32(acc, dB_part + ((ch.b * L + ch.t0) * H + ch.h) * N, rowBC, nt,
-              r0, cq, ch.nv, N);
-  }
-
-  // -- dX = M^T dY + w_j (B dS^T), per 64 columns of p (rows j); dw_j =
-  // <x_j, (B dS^T)_j>
-  float dw0 = 0.f, dw1 = 0.f;
-  __nv_bfloat16* dxb = dx + xo;
-  for (int pt = 0; pt < PC / 64; ++pt) {
-    float acc[32], t[32];
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kQ / 16; ++kk)
-      wgmma_ss_m64n64<1, 1>(
-          acc, make_desc(msa + kk * 2048, kTile, 1024, 1),
-          make_desc(ys + pt * kTile + kk * 2048, kTile, 1024, 1), kk > 0);
-    for (int kk = 0; kk < NK / 16; ++kk)
-      wgmma_ss_m64n64<0, 1>(
-          t, make_desc(bs + (kk / 4) * kTile + (kk % 4) * 32, 16, 1024, 1),
-          make_desc(ss + pt * kState + kk * 2048, kState, 1024, 1), kk > 0);
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_operands(acc);
-    fence_operands(t);
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb) {
-      const int p = 64 * pt + 8 * nb + 2 * cq;
-      const float2 x0 = get_pair(Xs, kQ, r0, p), x1 = get_pair(Xs, kQ, r1, p);
-      dw0 += x0.x * t[4 * nb] + x0.y * t[4 * nb + 1];
-      dw1 += x1.x * t[4 * nb + 2] + x1.y * t[4 * nb + 3];
-      acc[4 * nb] += w0 * t[4 * nb];
-      acc[4 * nb + 1] += w0 * t[4 * nb + 1];
-      acc[4 * nb + 2] += w1 * t[4 * nb + 2];
-      acc[4 * nb + 3] += w1 * t[4 * nb + 3];
-    }
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-      for (int hrow = 0; hrow < 2; ++hrow) {
-        const int j = hrow ? r1 : r0;
-        const int p = 64 * pt + 8 * nb + 2 * cq;
-        if (j >= ch.nv || p >= P) continue;
-        __nv_bfloat16* o = dxb + j * H * P + p;
-        const float a0 = acc[4 * nb + 2 * hrow], a1 = acc[4 * nb + 2 * hrow + 1];
-        if (P % 2 == 0) {
-          *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(a0, a1);
-        } else {
-          o[0] = __float2bfloat16(a0);
-          if (p + 1 < P) o[1] = __float2bfloat16(a1);
-        }
+      dw0 = quad_sum(dw0);
+      dw1 = quad_sum(dw1);
+      if (cq == 0) {
+        dws[r0] = dw0;
+        dws[r1] = dw1;
       }
-  }
-  dw0 = quad_sum(dw0);
-  dw1 = quad_sum(dw1);
-  if (cq == 0) {
-    dws[r0] = dw0;
-    dws[r1] = dw1;
-  }
+    }
+    __syncthreads();   // dcin, dws, red
 
-  // -- <h_in, dS> over the chunk's state: both tiles share one layout, so
-  // their 16-byte vectors pair up wherever they lie
-  float hd = 0.f;
-  for (int v = threadIdx.x; v < NC * PC / 8; v += blockDim.x) {
-    const uint4 hv = reinterpret_cast<const uint4*>(Hs)[v];
-    const uint4 sv = reinterpret_cast<const uint4*>(Ss)[v];
-    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&hv);
-    const __nv_bfloat162* s2 = reinterpret_cast<const __nv_bfloat162*>(&sv);
+    // -- finish, by the first warp: lane l holds steps 2 l and 2 l + 1
+    if (threadIdx.x < 32) {
+      const int l = threadIdx.x;
+      const float hds = (red[0] + red[1]) + (red[2] + red[3]);
+      float dc[2], dwv[2];
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const float2 a = __bfloat1622float2(h2[u]), b = __bfloat1622float2(s2[u]);
-      hd += a.x * b.x + a.y * b.y;
-    }
-  }
-  hd = warp_sum(hd);
-  if (lane == 0) red[warp] = hd;
-  __syncthreads();
-
-  // -- finish, by the first warp: lane l holds steps 2 l and 2 l + 1
-  if (threadIdx.x < 32) {
-    const int l = threadIdx.x;
-    const float hds = (red[0] + red[1]) + (red[2] + red[3]);
-    float dc[2], dwv[2];
+      for (int q = 0; q < 2; ++q) {
+        const int k = 2 * l + q;
+        dwv[q] = dws[k] * ws[k];
+        dc[q] = rowz[k] - colz[k] + (dcin[k] + dcin[kQ + k]) - dwv[q];
+      }
+      const float dT = expf(total) * hds + warp_sum(dwv[0] + dwv[1]);
+      // da_k = sum_{i >= k} dcum_i + dT: a suffix sum over the lanes
+      float suf = dc[0] + dc[1];
 #pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int k = 2 * l + u;
-      dwv[u] = dws[k] * ws[k];
-      dc[u] = rowz[k] - colz[k] + dcin[k] - dwv[u];
-    }
-    const float dT = expf(total) * hds + warp_sum(dwv[0] + dwv[1]);
-    // da_k = sum_{i >= k} dcum_i + dT: a suffix sum over the lanes
-    float suf = dc[0] + dc[1];
+      for (int o = 1; o < 32; o <<= 1) {
+        const float nx = __shfl_down_sync(0xffffffffu, suf, o);
+        if (l + o < 32) suf += nx;
+      }
+      float after = __shfl_down_sync(0xffffffffu, suf, 1);   // lanes > l
+      if (l == 31) after = 0.f;
+      const float da1 = after + dc[1] + dT;
+      const float da0 = after + dc[1] + dc[0] + dT;
+      const float a = A[h];
+      float sdA = 0.f;
 #pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const float n = __shfl_down_sync(0xffffffffu, suf, o);
-      if (l + o < 32) suf += n;
+      for (int q = 0; q < 2; ++q) {
+        const int k = 2 * l + q;
+        const float dak = q ? da1 : da0;
+        sdA += dts[k] * dak;
+        if (k < nv)
+          ddt[to + i + k * H] =
+              colw[k] + dws[k] * expf(total - cum[k]) + a * dak;
+      }
+      sdA = warp_sum(sdA);
+      if (l == 0) dA_part[(b * H + h0 + i) * nc + c] = sdA;
     }
-    float after = __shfl_down_sync(0xffffffffu, suf, 1);   // lanes > l
-    if (l == 31) after = 0.f;
-    const float da1 = after + dc[1] + dT;
-    const float da0 = after + dc[1] + dc[0] + dT;
-    const float a = A[ch.h];
-    float sdA = 0.f;
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int k = 2 * l + u;
-      const float dak = u ? da1 : da0;
-      sdA += dts[k] * dak;
-      if (k < ch.nv)
-        ddt[(ch.b * L + ch.t0 + k) * H + ch.h] =
-            colw[k] + dws[k] * expf(total - cum[k]) + a * dak;
-    }
-    sdA = warp_sum(sdA);
-    if (l == 0) dA_part[ch.bh * gridDim.x + blockIdx.x] = sdA;
+    // every thread is done with this head's vectors, M, D and tiles
+    __syncthreads();
+    if (bufs == 1 && i + 1 < hb) stage_head(i + 1, 0);
   }
 }
 
-// ---- 4. the sums over heads and chunks ------------------------------------------
+// ---- 4. the sums over blocks and chunks -----------------------------------------
 
 // grid (ceil(rows N / kReduceThreads), 2): out[row][n] = sum over the
-// group's rep heads, in order, of part[row * rep + r][n], to bf16; y = 0
-// for dB, 1 for dC. A row is (b * L + t) * G + g.
+// group's n_part head blocks, in order, of part[row * n_part + r][n], to
+// bf16; y = 0 for dB, 1 for dC. A row is (b * L + t) * G + g.
 __global__ void __launch_bounds__(kReduceThreads)
 group_sum(const float* __restrict__ dB_part,
           const float* __restrict__ dC_part, __nv_bfloat16* __restrict__ dB,
-          __nv_bfloat16* __restrict__ dC, int64_t rows, int rep, int N) {
+          __nv_bfloat16* __restrict__ dC, int64_t rows, int n_part, int N) {
   const int64_t e = blockIdx.x * (int64_t)kReduceThreads + threadIdx.x;
   if (e >= rows * N) return;
   const float* part = blockIdx.y ? dC_part : dB_part;
-  const float* p = part + (e / N) * rep * N + e % N;
+  const float* p = part + (e / N) * n_part * N + e % N;
   float s = 0.f;
-  for (int r = 0; r < rep; ++r) s += p[r * (int64_t)N];
+  for (int r = 0; r < n_part; ++r) s += p[r * (int64_t)N];
   (blockIdx.y ? dC : dB)[e] = __float2bfloat16(s);
 }
 
@@ -638,6 +778,14 @@ dA_sum(const float* __restrict__ part, float* __restrict__ dA, int64_t B,
   dA[h] = s;
 }
 
+// the heads an adjoint block walks: the largest power of 2 up to
+// kHeadsPerBlock that divides H / G
+int heads_per_block(int64_t H, int64_t G) {
+  int hb = kHeadsPerBlock;
+  while ((H / G) % hb) hb /= 2;
+  return hb;
+}
+
 int launch(const __nv_bfloat16* x, const float* dt, const float* A,
            const __nv_bfloat16* Bm, const __nv_bfloat16* Cm,
            const __nv_bfloat16* dy, __nv_bfloat16* dx, float* ddt, float* dA,
@@ -647,9 +795,14 @@ int launch(const __nv_bfloat16* x, const float* dt, const float* A,
            int64_t G, int P, int N, cudaStream_t stream) {
   const int nc = (int)((L + kQ - 1) / kQ);
   const int NC = round_up(N, 64), PC = round_up(P, 64);
+  const int hb = heads_per_block(H, G);
+  const int n_part = (int)(H / G / hb);
   // the forward's pass-1 tiles, 1,024 bytes of slack to align them
   const size_t s_state = 1024 + 2 * (size_t)kQ * (NC + PC) + 4 * 3 * kQ;
-  const size_t s_adj = adjoint_smem(NC, PC);
+  // two buffers of a head's tiles where they fit, so that the next head's
+  // load overlaps this head's products
+  const int bufs = adjoint_smem(NC, PC, 2) <= kMaxSmem ? 2 : 1;
+  const size_t s_adj = adjoint_smem(NC, PC, bufs);
   int err = set_smem(chunk_state_wgmma, s_state);
   if (!err) err = set_smem(chunk_dstate_wgmma, s_state);
   if (!err) err = set_smem(chunk_adjoint_wgmma, s_adj);
@@ -674,19 +827,23 @@ int launch(const __nv_bfloat16* x, const float* dt, const float* A,
                        kPassThreads, 0, stream>>>(states, totals, ds, nc,
                                                   NPe);
   if ((err = (int)cudaGetLastError())) return err;
-  // 3. the adjoint of every chunk
-  chunk_adjoint_wgmma<<<grid, kWgThreads, s_adj, stream>>>(
-      x, dt, A, Bm, Cm, dy, hin, ds, dx, ddt, dB_part, dC_part, dA_part, L, H,
-      G, P, N);
+  // 3. the adjoint of every chunk, hb heads a block
+  chunk_adjoint_wgmma<<<dim3((unsigned)nc, (unsigned)(B * H / hb)),
+                        kAdjThreads, s_adj, stream>>>(
+      x, dt, A, Bm, Cm, dy, hin, ds, dx, ddt, dB_part, dC_part, dB, dC,
+      dA_part, L, H, G, P, N, hb, bufs);
   if ((err = (int)cudaGetLastError())) return err;
-  // 4. the sums over each group's heads, and dA's over b and the chunks
-  const int64_t rows = B * L * G;
-  group_sum<<<dim3((unsigned)((rows * N + kReduceThreads - 1) /
-                              kReduceThreads),
-                   2),
-              kReduceThreads, 0, stream>>>(dB_part, dC_part, dB, dC, rows,
-                                           (int)(H / G), N);
-  if ((err = (int)cudaGetLastError())) return err;
+  // 4. the sums over each group's head blocks (none where one block walks
+  // the whole group), and dA's over b and the chunks
+  if (n_part > 1) {
+    const int64_t rows = B * L * G;
+    group_sum<<<dim3((unsigned)((rows * N + kReduceThreads - 1) /
+                                kReduceThreads),
+                     2),
+                kReduceThreads, 0, stream>>>(dB_part, dC_part, dB, dC, rows,
+                                             n_part, N);
+    if ((err = (int)cudaGetLastError())) return err;
+  }
   dA_sum<<<(unsigned)((H + kReduceThreads - 1) / kReduceThreads),
            kReduceThreads, 0, stream>>>(dA_part, dA, B, H, nc);
   return (int)cudaGetLastError();
@@ -699,8 +856,15 @@ extern "C" {
 // the steps per chunk. The scratch, n_chunks = ceil(L / chunk): `states`
 // B * H * n_chunks * N * P floats, `totals` and `dA_part` B * H * n_chunks
 // floats, `hin` and `ds` B * H * n_chunks * N * P bf16 values, `dB_part`
-// and `dC_part` B * L * H * N floats.
+// and `dC_part` B * L * (H / heads per block) * N floats (not written
+// where the heads per block are H / G).
 int ssd_scan_bwd_sm90_chunk() { return kQ; }
+
+// the heads of one group that an adjoint block walks, for H heads in G
+// groups (H a multiple of G)
+int ssd_scan_bwd_sm90_heads_per_block(int64_t H, int64_t G) {
+  return heads_per_block(H, G);
+}
 
 // x, dy, dx: [B, L, H, P] bf16; dt, ddt: [B, L, H] f32; A, dA: [H] f32;
 // Bm, Cm, dB, dC: [B, L, G, N] bf16; all contiguous, 16-byte aligned; H a

@@ -186,20 +186,26 @@ def flash_attention_backward_wgmma(q: torch.Tensor, k: torch.Tensor,
                                    causal: bool = True):
     """The bf16 backward kernel (wgmma + TMA) on bf16 q, k, v as
     ``flash_attention_bshd`` takes them and dO of q's shape, type and
-    layout → (dq, dk, dv) in the layouts of q, k and v. The row statistics
-    that pass 1 hands to pass 2 (lse and D, float32 [B, H, Sq_pad], Sq_pad
-    = Sq rounded up to the query tile) go to scratch allocated here. Both
+    layout → (dq, dk, dv) in the layouts of q, k and v. Counted in
+    ``flash_attention_backward_wgmma.launches``; ``backward_launch`` does
+    the work."""
+    _check_backward(q, k, v, do)
+    out = backward_launch(_library("flash_attention_bwd_sm90", 9,
+                                   ("query", "key"), "backward"),
+                          q, k, v, do, causal)
+    flash_attention_backward_wgmma.launches += 1
+    return out
+
+
+def backward_launch(lib: ctypes.CDLL, q, k, v, do, causal: bool):
+    """The backward on ``lib``, a bound build of
+    ``csrc/flash_attention_bwd_sm90.cu``, on inputs that
+    ``_check_backward`` passed, counting nothing. The row statistics that
+    pass 1 hands to pass 2 (lse and D, float32 [B, H, Sq_pad], Sq_pad =
+    Sq rounded up to the query tile) go to scratch allocated here. Both
     passes run on the current stream of q's device; reruns are
-    bit-identical. Counted in ``flash_attention_backward_wgmma.launches``.
-    """
-    _check(q, k, v, torch.bfloat16)
-    if (do.shape != q.shape or do.dtype != q.dtype or do.device != q.device
-            or not do.is_contiguous() or do.data_ptr() % 16):
-        raise ValueError(f"dO must be a contiguous, 16-byte aligned tensor "
-                         f"of q's shape, type and device, got "
-                         f"{tuple(do.shape)} {do.dtype} on {do.device}")
+    bit-identical."""
     name = "flash_attention_bwd_sm90"
-    lib = _library(name, 9, ("query", "key"), "backward")
     B, Sq, H, _ = q.shape
     Skv = k.shape[1]
     tile = lib.flash_attention_bwd_sm90_query_tile()
@@ -213,8 +219,17 @@ def flash_attention_backward_wgmma(q: torch.Tensor, k: torch.Tensor,
             tuple(t.data_ptr() for t in (q, k, v, do, dq, dk, dv, stats[0],
                                          stats[1])), q, k, causal,
             entry="backward")
-    flash_attention_backward_wgmma.launches += 1
     return dq, dk, dv
+
+
+def _check_backward(q, k, v, do) -> None:
+    """Raises unless q, k, v, dO are what the backward kernel takes."""
+    _check(q, k, v, torch.bfloat16)
+    if (do.shape != q.shape or do.dtype != q.dtype or do.device != q.device
+            or not do.is_contiguous() or do.data_ptr() % 16):
+        raise ValueError(f"dO must be a contiguous, 16-byte aligned tensor "
+                         f"of q's shape, type and device, got "
+                         f"{tuple(do.shape)} {do.dtype} on {do.device}")
 
 
 def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

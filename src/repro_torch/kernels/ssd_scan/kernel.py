@@ -18,8 +18,9 @@ does not take; the plain version is ``ref.ssd_scan_reference``.
 ``ssd_scan_backward_wgmma(x, dt, A, B_, C, dy)`` launches the bf16
 backward, ``kernels/csrc/ssd_scan_bwd_sm90.cu`` (the forward's states
 recomputed, each chunk's state cotangent, a reverse pass over the chunks,
-one adjoint per chunk on wgmma, the sums over heads), with its scratch
-allocated here; its plain version is ``backward.ssd_scan_backward``.
+one adjoint per chunk and block of heads on wgmma, the sums over the
+blocks), with its scratch allocated here; its plain version is
+``backward.ssd_scan_backward``.
 """
 from __future__ import annotations
 
@@ -133,13 +134,20 @@ def ssd_scan_fma(x, dt, A, B_, C, return_state: bool = False):
 
 @functools.cache
 def _bwd_library() -> ctypes.CDLL:
-    lib = build.load("ssd_scan_bwd_sm90")
+    return bind_backward(build.load("ssd_scan_bwd_sm90"))
+
+
+def bind_backward(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of ``csrc/ssd_scan_bwd_sm90.cu``) with its entry
+    points bound."""
     fn = lib.ssd_scan_bwd_sm90_backward
     fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int64] * 6 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.ssd_scan_bwd_sm90_chunk.argtypes = []
     lib.ssd_scan_bwd_sm90_chunk.restype = ctypes.c_int
+    lib.ssd_scan_bwd_sm90_heads_per_block.argtypes = [ctypes.c_int64] * 2
+    lib.ssd_scan_bwd_sm90_heads_per_block.restype = ctypes.c_int
     lib.ssd_scan_bwd_sm90_error_string.argtypes = [ctypes.c_int]
     lib.ssd_scan_bwd_sm90_error_string.restype = ctypes.c_char_p
     return lib
@@ -148,25 +156,40 @@ def _bwd_library() -> ctypes.CDLL:
 def ssd_scan_backward_wgmma(x, dt, A, B_, C, dy):
     """The bf16 backward kernel on inputs as ``ssd_scan_blh`` takes them
     (x, B_, C bf16) and the cotangent dy of y (x's shape, type and device,
-    contiguous) → (dx, ddt, dA, dB_, dC) in their inputs' types. dt and A
-    are widened to float32 here. The scratch, allocated here: the
-    recomputed states (4·B·H·ceil(L / chunk)·N·P bytes, and as many again
-    in bf16 for h_in and for dS) and the per-head float32 partials of dB_
-    and dC (8·B·L·H·N bytes). Every launch goes to the current stream of
-    x's device; reruns are bit-identical. Counted in
-    ``ssd_scan_backward_wgmma.launches``."""
+    contiguous) → (dx, ddt, dA, dB_, dC) in their inputs' types. Counted
+    in ``ssd_scan_backward_wgmma.launches``; ``backward_launch`` does the
+    work."""
+    _check_backward(x, dt, A, B_, C, dy)
+    out = backward_launch(_bwd_library(), x, dt, A, B_, C, dy)
+    ssd_scan_backward_wgmma.launches += 1
+    return out
+
+
+def _check_backward(x, dt, A, B_, C, dy) -> None:
+    """Raises unless the inputs and dy are what the backward kernel takes."""
     _check(x, dt, A, B_, C, torch.bfloat16)
     if (dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device
             or not dy.is_contiguous()):
         raise ValueError(f"dy must be a contiguous tensor of x's shape, type "
                          f"and device, got {tuple(dy.shape)} {dy.dtype} on "
                          f"{dy.device}")
+
+
+def backward_launch(lib: ctypes.CDLL, x, dt, A, B_, C, dy):
+    """The backward on ``lib`` (bound by ``bind_backward``), on inputs that
+    ``_check_backward`` passed, counting nothing. dt and A are widened to
+    float32 here. The scratch, allocated here: the recomputed states
+    (4·B·H·ceil(L / chunk)·N·P bytes, and as many again in bf16 for h_in
+    and for dS) and the float32 partials of dB_ and dC, one per block of
+    heads the adjoint walks (8·B·L·(H / heads per block)·N bytes; none
+    where a block walks a whole group). Every launch goes to the current
+    stream of x's device; reruns are bit-identical."""
     Bb, L, H, P = x.shape
     G, N = B_.shape[2], B_.shape[3]
     dt32 = dt.float().contiguous()
     A32 = A.float().contiguous()
-    lib = _bwd_library()
     n_chunks = -(-L // lib.ssd_scan_bwd_sm90_chunk())
+    blocks = H // lib.ssd_scan_bwd_sm90_heads_per_block(H, G)
     f32, dev = torch.float32, x.device
     dx, dB, dC = (torch.empty_like(t) for t in (x, B_, C))
     ddt = torch.empty((Bb, L, H), dtype=f32, device=dev)
@@ -175,7 +198,8 @@ def ssd_scan_backward_wgmma(x, dt, A, B_, C, dy):
     states = torch.empty(n_state, dtype=f32, device=dev)
     hin, ds = torch.empty((2, n_state), dtype=torch.bfloat16, device=dev)
     per_chunk = torch.empty((2, Bb * H * n_chunks), dtype=f32, device=dev)
-    parts = torch.empty((2, Bb, L, H, N), dtype=f32, device=dev)
+    parts = torch.empty((2, Bb, L, blocks if blocks > G else 0, N),
+                        dtype=f32, device=dev)
     ptrs = (x, dt32, A32, B_, C, dy, dx, ddt, dA, dB, dC, states,
             per_chunk[0], hin, ds, parts[0], parts[1], per_chunk[1])
     with torch.cuda.device(dev):
@@ -185,7 +209,6 @@ def ssd_scan_backward_wgmma(x, dt, A, B_, C, dy):
     if err:
         msg = lib.ssd_scan_bwd_sm90_error_string(err).decode()
         raise RuntimeError(f"ssd_scan backward kernel launch failed: {msg}")
-    ssd_scan_backward_wgmma.launches += 1
     return dx, ddt.to(dt.dtype), dA.to(A.dtype), dB, dC
 
 

@@ -41,10 +41,13 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 # the flash backward (bf16; the JAX package has no backward kernel, so its
 # gradients come from jax.grad of models.layers.chunked_attention): (B,
-# Sq, Skv, H, KV, d, causal). Every head dim; GQA rep 1, 2, 3 and 5; Sq <
-# Skv and Sq > Skv, causal and not; query lengths over several tiles of
-# both passes. Each gradient within FLASH_BWD_RTOL · max|g| of jax.grad
-# (the two round their bf16 products at different points).
+# Sq, Skv, H, KV, d, causal). Every head dim; GQA rep 1, 2, 3, 4 and 5;
+# Sq < Skv and Sq > Skv, causal and not; query lengths over several tiles
+# of both passes. The last four sum dq over several key tiles of 128: d 16
+# with rows that see no key (causal, Sq > Skv), rep 4; non-causal Sq <
+# Skv and Sq > Skv; rep 4 causal over three key tiles. Each gradient within
+# FLASH_BWD_RTOL · max|g| of jax.grad (the two round their bf16 products
+# at different points).
 FLASH_BWD_SWEEP = ((2, 64, 64, 4, 2, 16, True),
                    (1, 100, 200, 3, 3, 16, False),     # rep 1, Sq < Skv
                    (1, 130, 130, 4, 2, 32, True),
@@ -52,7 +55,11 @@ FLASH_BWD_SWEEP = ((2, 64, 64, 4, 2, 16, True),
                    (1, 200, 150, 5, 1, 64, False),     # rep 5, Sq > Skv
                    (1, 160, 96, 4, 2, 64, True),       # causal, Sq > Skv
                    (2, 96, 224, 2, 1, 128, False),     # cross-attention
-                   (1, 300, 300, 4, 2, 128, True))
+                   (1, 300, 300, 4, 2, 128, True),
+                   (1, 330, 260, 4, 1, 16, True),      # d 16, Sq > Skv
+                   (2, 96, 300, 4, 4, 64, False),      # rep 1, Sq < Skv
+                   (1, 300, 170, 8, 4, 128, False),    # rep 2, Sq > Skv
+                   (1, 260, 260, 8, 2, 32, True))      # rep 4
 FLASH_BWD_RTOL = 5e-2
 
 # SSD scan: (B, L, H, P, G, N, chunk, dtype), |err| <= SSD_RTOL[dtype] ·

@@ -27,11 +27,12 @@ from repro_torch.kernels.flash_attention.kernel import (
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_reference
 from repro_torch.kernels.ssd_scan.kernel import (ssd_scan_blh, ssd_scan_fma,
                                                  ssd_scan_wgmma)
-from repro_torch.kernels.sweeps import (FLASH_BWD_SWEEP, FLASH_SWEEP,
-                                        FLASH_TOL,
+from repro_torch.kernels.sweeps import (FLASH_BWD_RTOL, FLASH_BWD_SWEEP,
+                                        FLASH_SWEEP, FLASH_TOL,
                                         FULL_FLASH_BF16_ROW_RTOL,
                                         FULL_SSD_RTOL, SEGMENT_SUM_RTOL,
-                                        SSD_RTOL, SSD_SWEEP, STEP_GRAD_ATOL,
+                                        SSD_BWD_RTOL, SSD_RTOL, SSD_SWEEP,
+                                        STEP_GRAD_ATOL,
                                         STEP_GRAD_RTOL,
                                         STEP_SSM_GRAD_ATOL, WINDOW_SWEEP,
                                         WINDOW_TOL, full_widths)
@@ -782,6 +783,36 @@ def test_flash_backward_kernel_matches_the_formula(cuda, B, Sq, Skv, H, KV,
         assert not got[0][:, :Sq - Skv].any()
 
 
+# (B, Sq, Skv, H, KV, d, causal) with more CTAs in each pass than 4 waves
+# of 132 SMs: qwen3-1.7b's widths at batch 4 (2,048 pass-1 and 1,024
+# pass-2 CTAs), and non-causal, where every key tile reaches every query
+# tile (1,024 and 1,024)
+FLASH_BWD_WAVES = [(4, 4096, 4096, 16, 8, 128, True),
+                   (16, 1024, 1024, 8, 8, 64, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,d,causal", FLASH_BWD_WAVES)
+def test_flash_backward_kernel_is_bit_identical_across_waves(
+        cuda, B, Sq, Skv, H, KV, d, causal):
+    """Three runs of the bf16 backward kernel on grids of many waves are
+    bit-identical (every sum in an order that the schedule does not
+    change), and each gradient is within FLASH_BWD_RTOL·max|g| of the
+    formula run in bf16 on the same values."""
+    q, k, v, do = _bwd_inputs(cuda, B, Sq, Skv, H, KV, d, "bfloat16", d)
+    runs = [flash_attention_backward_wgmma(q, k, v, do, causal)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    for again in runs[1:]:
+        for a, b in zip(runs[0], again):
+            assert torch.equal(_bits(a), _bits(b))
+    plain = flash_attention_backward(q, k, v, do, causal)
+    for a, p in zip(runs[0], plain):
+        assert torch.isfinite(a.float()).all()
+        err = float((a.float() - p.float()).abs().max())
+        assert err <= FLASH_BWD_RTOL * float(p.float().abs().max()), err
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_flash_backward_route_on_the_card(cuda, dtype):
@@ -853,9 +884,13 @@ def test_ssd_backward_on_the_card_matches_the_cpu(cuda, B, L, H, P, G, N,
 
 
 # the SSD backward kernel's cases (B, L, H, P, G, N): G 1 and 2, L past
-# the last whole chunk of 64, a single chunk, mamba2's P 64 and N 128
+# the last whole chunk of 64, a single chunk, mamba2's P 64 and N 128;
+# the last two have more heads a group than an adjoint block walks (16,
+# or 8 where 16 does not divide them), so their dB and dC are summed over
+# 2 and 3 blocks
 SSD_BWD_CASES = [(2, 256, 4, 64, 1, 128), (1, 200, 4, 16, 2, 32),
-                 (1, 328, 8, 64, 1, 128), (2, 40, 4, 16, 1, 32)]
+                 (1, 328, 8, 64, 1, 128), (2, 40, 4, 16, 1, 32),
+                 (1, 200, 64, 16, 2, 32), (1, 130, 24, 64, 1, 128)]
 
 
 def _ssd_bwd_inputs(dev, B, L, H, P, G, N, dtype, seed):
@@ -897,6 +932,28 @@ def test_ssd_backward_kernel_matches_the_formula(cuda, B, L, H, P, G, N):
         e_k = float((a.float() - e).abs().max())
         e_f = float((p.float() - e).abs().max())
         assert e_k <= 2 * e_f + 1e-3 * mx, (e_k, e_f, mx)
+
+
+@pytest.mark.gpu
+def test_ssd_backward_kernel_is_bit_identical_over_head_blocks(cuda):
+    """Three runs of the bf16 SSD backward kernel at 2 × 16 heads a group
+    in 3 groups (each group's dB and dC summed over two adjoint blocks of
+    16 heads, then over the blocks) are bit-identical, and each gradient is
+    within SSD_BWD_RTOL·max|g| of the formula run in bf16 on the same
+    values."""
+    from repro_torch.kernels.ssd_scan.backward import ssd_scan_backward
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_backward_wgmma
+    *ins, dy = _ssd_bwd_inputs(cuda, 2, 1024, 96, 64, 3, 128, "bfloat16", 9)
+    runs = [ssd_scan_backward_wgmma(*ins, dy) for _ in range(3)]
+    torch.cuda.synchronize()
+    for again in runs[1:]:
+        for a, b in zip(runs[0], again):
+            assert torch.equal(_bits(a), _bits(b))
+    plain = ssd_scan_backward(*ins, 64, dy)
+    for a, p in zip(runs[0], plain):
+        assert torch.isfinite(a.float()).all()
+        err = float((a.float() - p.float()).abs().max())
+        assert err <= SSD_BWD_RTOL["bfloat16"] * float(p.float().abs().max())
 
 
 @pytest.mark.gpu

@@ -391,7 +391,7 @@ def test_ssd_design_matches_jax(B, L, H, P, G, N, chunk, dtype, Q):
 
 # ---- flash backward --------------------------------------------------------
 
-BWD_KEY_TILE = 64       # flash_attention_bwd_sm90.cu kBN1 (pass 1)
+BWD_KEY_TILE = 128      # flash_attention_bwd_sm90.cu kBN1 (pass 1)
 BWD_CTA_KEYS = 128      # kBN2 (pass 2: two warpgroups of 64 keys)
 BWD_QUERY_TILE = 64     # kBM2 (pass 2)
 
@@ -470,7 +470,8 @@ def flash_backward_design(q, k, v, do, causal: bool, q_offset=None):
         p = torch.exp2(s * sl2 - lse_r[..., None])
         return p, p * (dp - D_r[..., None]) * scale
 
-    # pass 1, second sweep: dQ += dS·K over key tiles of 64
+    # pass 1, second sweep: dQ += bf16(dS)·K over key tiles of
+    # BWD_KEY_TILE, in order, in fp32; rounded to bf16 once
     kr, vr = (t.repeat_interleave(rep, 1) for t in (kf, vf))
     dq = torch.zeros_like(qf)
     for k0 in range(0, Skv, BWD_KEY_TILE):
@@ -621,10 +622,37 @@ def test_flash_backward_design_no_less_accurate_than_the_formula(
 # ---- SSD backward ----------------------------------------------------------
 
 SSD_BWD_CHUNK = 64      # ssd_scan_bwd_sm90.cu (and ssd_scan.cu) kQ
-# the SSD_SWEEP shapes (B, L, H, P, G, N, chunk), each once, and one L
-# below a chunk
-SSD_BWD_SHAPES = sorted({c[:7] for c in SSD_SWEEP}) + [(2, 40, 4, 16, 1, 32,
-                                                        64)]
+SSD_BWD_HEADS = 16      # ssd_scan_bwd_sm90.cu kHeadsPerBlock
+# the SSD_SWEEP shapes (B, L, H, P, G, N, chunk), each once, one L below a
+# chunk, and two with more heads a group than an adjoint block walks
+# (dB and dC summed over 3 blocks of 8 and 2 of 16)
+SSD_BWD_SHAPES = sorted({c[:7] for c in SSD_SWEEP}) + [
+    (2, 40, 4, 16, 1, 32, 64), (1, 130, 24, 16, 1, 32, 64),
+    (1, 200, 64, 16, 2, 32, 64)]
+
+
+def _heads_per_block(H: int, G: int) -> int:
+    """The heads of one group that an adjoint block walks: the largest
+    power of 2 up to SSD_BWD_HEADS that divides H / G."""
+    hb = SSD_BWD_HEADS
+    while (H // G) % hb:
+        hb //= 2
+    return hb
+
+
+def _sum_heads(t, G: int, hb: int):
+    """[B, L, H, N] float32 → [B, L, G, N]: each group's heads summed in
+    head order inside blocks of hb, then the blocks in order, as the
+    adjoint and group_sum sum them."""
+    Bb, L, H, N = t.shape
+    t = t.reshape(Bb, L, G, H // G // hb, hb, N)
+    blocks = t[..., 0, :]
+    for i in range(1, hb):
+        blocks = blocks + t[..., i, :]
+    out = blocks[..., 0, :]
+    for r in range(1, blocks.shape[3]):
+        out = out + blocks[..., r, :]
+    return out
 
 
 def _unchunk(t, L):
@@ -641,9 +669,10 @@ def ssd_backward_design(x, dt, A, B_, C, dy, Q: int = SSD_BWD_CHUNK):
     (C·e^cum)ᵀ·dY; (2) a reverse pass over the chunks, Gh[c] = dh_in[c] +
     e^T_c·Gh[c+1] with dS_c = Gh[c+1]; (3) one adjoint per chunk and head;
     (4) da the reverse running sum of dcum plus dT, ddt and dA from it, dB
-    and dC summed over each group's heads. In bf16 the operands the
-    products take are rounded where the kernel rounds them: B·w, h_in,
-    C·e^cum, dS, M and dM∘L∘dt; every sum is float32."""
+    and dC summed over each group's heads in head order, in blocks of the
+    heads an adjoint block walks, then over the blocks in order. In bf16
+    the operands the products take are rounded where the kernel rounds
+    them: B·w, h_in, C·e^cum, dS, M and dM∘L∘dt; every sum is float32."""
     rnd = x.dtype == torch.bfloat16
     Bb, L, H, P = x.shape
     G, N = B_.shape[2], B_.shape[3]
@@ -716,8 +745,9 @@ def ssd_backward_design(x, dt, A, B_, C, dy, Q: int = SSD_BWD_CHUNK):
         + dT[:, :, None]
     ddt = col_w + dw * torch.exp(total[:, :, None] - cum) + Af * da
     dA = (dtc * da).sum((0, 1, 2))
-    dB = _unchunk(dB, L).reshape(Bb, L, G, rep, N).sum(3)
-    dC = _unchunk(dC, L).reshape(Bb, L, G, rep, N).sum(3)
+    hb = _heads_per_block(H, G)
+    dB = _sum_heads(_unchunk(dB, L), G, hb)
+    dC = _sum_heads(_unchunk(dC, L), G, hb)
     return (_unchunk(dX, L).to(x.dtype), _unchunk(ddt, L).to(dt.dtype),
             dA.to(A.dtype), dB.to(B_.dtype), dC.to(C.dtype))
 
