@@ -131,8 +131,9 @@ JSON line; any failure exits non-zero:
   train   the language models' training path: flash at head dim 16 (the
           reduced() configs') against its plain version, bf16 on the wgmma
           kernel (``flash_attention_wgmma``, 32-column tiles whose 16
-          columns past d TMA fills with zeros) and fp32 on the CUDA-core
-          one (``flash_attention_d16``), causal and not, GQA, Sq != Skv;
+          columns past d TMA fills with zeros) and fp32 on 3xTF32
+          ``mma.sync`` (``flash_attention_d16``), causal and not, GQA,
+          Sq != Skv;
           the flash and SSD backwards (autograd through the ops, whose
           forward is the kernel; in bf16 each backward its kernel,
           ``flash_attention_backward_wgmma`` and
@@ -164,7 +165,9 @@ JSON line; any failure exits non-zero:
           d 16 once a layer a step; the d 16 kernels, the bf16 backward
           kernel, SDPA and SDPA's backward timed, and their device ms from
           torch.profiler in a child process, ``chip_smoke.py
-          --trace-d16``) and 3 fp32 steps, serve_demo,
+          --trace-d16``) and 3 fp32 steps; the fp32 d 16 kernel also at
+          D16_OFF_PATH, a longer shape that no path runs, beside SDPA
+          and its bound; serve_demo,
           measure_step_time of schedule_run's archs, ``schedule_run
           --jobs 3 --steps 2`` (its plan line equal to the CPU's); the
           path's kernels by CUDA events for the ``kernels`` line
@@ -1674,6 +1677,10 @@ FLASH_D16_CASES = ((8, 128, 128, 4, 2, 16, True),
                    (2, 200, 200, 4, 1, 16, True),      # ragged, MQA
                    (1, 96, 160, 4, 2, 16, False),      # Sq < Skv
                    (1, 160, 96, 2, 2, 16, True))       # Sq > Skv
+# fp32 flash at head dim 16 at a shape no path runs: the reduced shape's
+# batch and heads at 16 times its sequence, where work and not the launch
+# sets the time
+D16_OFF_PATH = (8, 2048, 2048, 4, 2, 16, True)
 # the backward checks' shapes: (B, Sq, Skv, H, KV, d, causal, q's scale)
 # and (B, L, H, P, G, N, chunk); the backward's tolerance as a fraction of
 # each gradient's max|g| (bf16: the two sides round their products apart)
@@ -1766,14 +1773,15 @@ def trace_train(arch) -> None:
 def trace_d16() -> None:
     """(Run as ``chip_smoke.py --trace-d16``, by ``train_path``.) Flash at
     head dim 16 at the reduced train_loop's shape (FLASH_D16_CASES[0]),
-    bf16 and fp32, through ``flash_attention_bshd`` (whichever kernel this
-    checkout routes it to) and SDPA on the same inputs, and in bf16 the
-    backward kernel and SDPA's backward, each under torch.profiler over 50
-    calls (``kernel_device_ms``); prints {dtype: {device_ms,
-    library_device_ms, device_ms_by_kernel, library_device_ms_by_kernel}}
-    on its last line, with {backward_device_ms,
-    backward_library_device_ms, and the two by kernel} in bf16's, device
-    ms per call. A process of its own, as ``trace_train``."""
+    bf16 and fp32, and in fp32 at D16_OFF_PATH (``float32_off_path``),
+    through ``flash_attention_bshd`` (whichever kernel this checkout
+    routes it to) and SDPA on the same inputs, and in bf16 the backward
+    kernel and SDPA's backward, each under torch.profiler over 50 calls
+    (``kernel_device_ms``); prints {case: {device_ms, library_device_ms,
+    device_ms_by_kernel, library_device_ms_by_kernel}} on its last line,
+    with {backward_device_ms, backward_library_device_ms, and the two by
+    kernel} in bf16's, device ms per call. A process of its own, as
+    ``trace_train``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.kernel import (
@@ -1781,19 +1789,22 @@ def trace_d16() -> None:
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    B, Sq, Skv, H, KV, d, causal = FLASH_D16_CASES[0]
-    out = {}
-    for dt in ("bfloat16", "float32"):
+
+    def forward(shape, dt) -> dict:
+        B, Sq, Skv, H, KV, d, causal = shape
         q, k, v = flash_inputs(dev, gen, B, Sq, Skv, H, KV, d, dt)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         kern = kernel_device_ms(
             lambda: flash_attention_bshd(q, k, v, causal=causal), n=50)
         lib = kernel_device_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=True), n=50)
-        out[dt] = {"device_ms": sum(kern.values()),
-                   "library_device_ms": sum(lib.values()),
-                   "device_ms_by_kernel": kern,
-                   "library_device_ms_by_kernel": lib}
+        return {"device_ms": sum(kern.values()),
+                "library_device_ms": sum(lib.values()),
+                "device_ms_by_kernel": kern,
+                "library_device_ms_by_kernel": lib}
+    out = {dt: forward(FLASH_D16_CASES[0], dt)
+           for dt in ("bfloat16", "float32")}
+    B, Sq, Skv, H, KV, d, causal = FLASH_D16_CASES[0]
     # the bf16 backward kernel and SDPA's backward on the same values
     q, k, v = flash_inputs(dev, gen, B, Sq, Skv, H, KV, d, "bfloat16")
     do = torch.randn(q.shape, device=dev, generator=gen).to(q.dtype)
@@ -1810,6 +1821,7 @@ def trace_d16() -> None:
         backward_library_device_ms=sum(lib.values()),
         backward_device_ms_by_kernel=kern,
         backward_library_device_ms_by_kernel=lib)
+    out["float32_off_path"] = forward(D16_OFF_PATH, "float32")
     print(json.dumps(out), flush=True)
 
 
@@ -2207,8 +2219,8 @@ def train_path(dev, gen, smi0) -> list:
     """The LM training path on the card:
       (a) flash at head dim 16 against its plain version, bf16 on the
           wgmma kernel (``flash_attention_wgmma``, 32-column tiles zero
-          past d) and fp32 on the CUDA-core one (``flash_attention_d16``),
-          causal and not, GQA, Sq != Skv;
+          past d) and fp32 on 3xTF32 ``mma.sync``
+          (``flash_attention_d16``), causal and not, GQA, Sq != Skv;
       (b) the flash and SSD backwards on the card (autograd through the
           ops, whose forward is the kernel; flash's backward in bf16 the
           kernel, in fp32 the formula) against autograd
@@ -2263,7 +2275,7 @@ def train_path(dev, gen, smi0) -> list:
     rows = []
 
     # (a) flash at head dim 16 against its plain version: bf16 on the
-    # wgmma kernel, fp32 on the CUDA-core one
+    # wgmma kernel, fp32 on the mma.sync one
     d16_err = {}
     for B, Sq, Skv, H, KV, d, causal in FLASH_D16_CASES:
         for dt in ("bfloat16", "float32"):
@@ -2433,7 +2445,7 @@ def train_path(dev, gen, smi0) -> list:
          measure_step_time_s=step_s, schedule_run=lines, nvidia_smi=smi0)
 
     # the kernels line: d 16 at the reduced train_loop's shape (bf16: the
-    # wgmma kernel; fp32: the CUDA-core kernel) beside SDPA; the training
+    # wgmma kernel; fp32: the mma.sync kernel) beside SDPA; the training
     # path's bf16 kernels at the full-width training shapes. The device
     # times come from a child process: every torch.profiler trace this
     # process takes leaves later ones likelier to drop device events (the
@@ -2453,6 +2465,12 @@ def train_path(dev, gen, smi0) -> list:
                      "src/repro/kernels/flash_attention/kernel.py:87",
                      d16_launches if dt == "bfloat16" else d16_launches32,
                      d16_err[dt], t))
+    # fp32 d 16 at a shape no path runs, where the work and not the launch
+    # sets the time: events and device ms beside SDPA and the bound
+    t = time_flash(dev, gen, D16_OFF_PATH, "float32")
+    t.update(kernel="flash_attention_d16", **d16_device["float32_off_path"])
+    emit("times", case="flash d 16 off-path fp32", shape=list(D16_OFF_PATH),
+         dtype="float32", nvidia_smi=smi0, **t)
     # the bf16 backward kernel at the reduced train_loop's shape, its
     # device ms and SDPA's backward's from the child
     B16, S16, _, H16, KV16, dim16, _ = FLASH_D16_CASES[0]
@@ -2859,12 +2877,14 @@ def paper4() -> None:
 
 def kernel_device_ms(fn, n=10) -> dict:
     """Device time per call of each kernel that fn launches, by name, from
-    torch.profiler over n calls after one warm-up. Only entries seen a
-    multiple of n times count: the profiler's own buffer set-up shows as a
-    device entry seen once. A trace that sees no kernel n times (the
-    profiler drops a trace's device events now and then) is reported on a
-    ``profiler_retry`` line and taken again, up to PROFILER_ATTEMPTS
-    times."""
+    torch.profiler over n calls after one warm-up: the mean time of the
+    launches seen, times the launches a call, round(seen / n). An entry
+    seen fewer than n / 2 times does not count: the profiler's own buffer
+    set-up shows as a device entry seen once. The profiler drops a
+    trace's device events now and then: a launch or two (a kernel seen
+    49 times in 50 calls) or all of them; a trace that sees no kernel is
+    reported on a ``profiler_retry`` line and taken again, up to
+    PROFILER_ATTEMPTS times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -2881,10 +2901,11 @@ def kernel_device_ms(fn, n=10) -> dict:
                 t = e.self_cuda_time_total
             name = re.sub(r"^void |\(anonymous namespace\)::", "", e.key)
             name = name.split("(")[0]
+            per_call = round(e.count / n)
             if t > 0:
                 seen[name] = e.count
-            if t > 0 and e.count % n == 0:
-                out[name] = t / n / 1e3
+            if t > 0 and per_call >= 1:
+                out[name] = t / e.count * per_call / 1e3
         if out:
             return out
         emit("profiler_retry", attempt=attempt, device_entries_seen=seen)

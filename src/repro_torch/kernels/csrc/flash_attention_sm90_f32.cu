@@ -66,7 +66,8 @@
 //  * No atomics and a fixed order of every sum: reruns are bit-identical.
 //
 // At d = 16 (every reduced() configuration) the entry point launches the
-// CUDA-core kernel of flash_d16.cuh instead, without the pre-pass.
+// kernel of flash_d16.cuh instead: 3xTF32 on warp-level mma.sync, its
+// operands split in registers, so without the pre-pass or its scratch.
 //
 // Plain C interface, loaded with ctypes. The launches go to the caller's
 // stream; nothing here allocates or synchronises: the caller passes the
@@ -494,12 +495,15 @@ extern "C" {
 // keys of one tile (V^T's rows hold Skv rounded up to a multiple of this)
 int flash_attention_sm90_f32_query_tile() { return kBM; }
 int flash_attention_sm90_f32_key_tile() { return kBN; }
+// the queries of one CTA of the d = 16 kernel
+int flash_attention_sm90_f32_d16_query_tile() { return d16::kRows; }
 
 // q, o: [B, Sq, H, d]; k, v: [B, Skv, KV, d]; all contiguous float32,
-// 16-byte aligned; d in {16, 32, 64, 128} (d = 16 on the CUDA cores,
+// 16-byte aligned; d in {16, 32, 64, 128} (d = 16 on mma.sync,
 // flash_d16.cuh, which needs no scratch: the four scratch pointers may
 // then be null); H a multiple of KV; 1 <= Sq, Skv <
-// 2^31; ceil(Sq / 64) <= 65535, B * KV <= 65535. Scratch from the caller:
+// 2^31; ceil(Sq / 64) <= 65535 (ceil(Sq / the d 16 query tile) at d =
+// 16), B * KV <= 65535. Scratch from the caller:
 // k_hi, k_lo like k; vt_hi, vt_lo [B, KV, d, Skv_pad] with Skv_pad = Skv
 // rounded up to the key tile. scale multiplies q . k.
 int flash_attention_sm90_f32_forward(const void* q, const void* k,
@@ -519,8 +523,8 @@ int flash_attention_sm90_f32_forward(const void* q, const void* k,
   float* vl = static_cast<float*>(vt_lo);
   switch (d) {
     case 16:
-      return d16::launch_d16<float>(q, k, v, o, B, H, KV, Sq, Skv, causal,
-                                    scale, s);
+      return d16::launch_d16(q, k, v, o, B, H, KV, Sq, Skv, causal, scale,
+                             s);
     case 32:
       return launch<32>(qf, kf, vf, of, kh, kl, vh, vl, B, H, KV, Sq, Skv,
                         causal, scale, s);

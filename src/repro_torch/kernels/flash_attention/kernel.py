@@ -17,8 +17,10 @@ the plain version is ``ref.attention_reference``.
 
 Head dim 16 (every ``reduced()`` configuration's): bf16 runs on the wgmma
 kernel with 32-column tiles whose 16 columns past d TMA fills with zeros,
-float32 on the CUDA-core kernel of ``kernels/csrc/flash_d16.cuh``
-(``flash_attention_d16``).
+float32 on the kernel of ``kernels/csrc/flash_d16.cuh``
+(``flash_attention_d16``): 3xTF32 on warp-level ``mma.sync``, its
+operands split in registers and K/V staged by ``cp.async``, so it needs
+neither the pre-pass nor its scratch.
 
 ``flash_attention_backward_wgmma(q, k, v, do, causal)`` launches the bf16
 backward, ``kernels/csrc/flash_attention_bwd_sm90.cu`` (two passes on
@@ -38,6 +40,8 @@ from repro_torch.kernels import build
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GRID_Y = 65535
+# the tile queries of flash_attention_sm90_f32.cu
+_F32_TILES = ("query", "key", "d16_query")
 
 
 @functools.cache
@@ -141,7 +145,7 @@ def flash_attention_3xtf32(q: torch.Tensor, k: torch.Tensor,
     allocated here (twice the bytes of k and v). Counted in
     ``flash_attention_3xtf32.launches``."""
     _check(q, k, v, torch.float32)
-    lib = _library("flash_attention_sm90_f32", 8, ("query", "key"))
+    lib = _library("flash_attention_sm90_f32", 8, _F32_TILES)
     B, Sq, H, d = q.shape
     _, Skv, KV, _ = k.shape
     _check_grid(q, max(-(-Sq // lib.flash_attention_sm90_f32_query_tile()),
@@ -162,17 +166,18 @@ def flash_attention_3xtf32(q: torch.Tensor, k: torch.Tensor,
 
 def flash_attention_d16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True) -> torch.Tensor:
-    """The CUDA-core kernel at head dim 16 (``csrc/flash_d16.cuh``) on
-    float32 q, k, v as ``flash_attention_bshd`` takes them (bf16 runs d 16
-    on ``flash_attention_wgmma``); it needs no scratch. Counted in
-    ``flash_attention_d16.launches``."""
+    """The head-dim-16 kernel (``csrc/flash_d16.cuh``: 3xTF32 on
+    ``mma.sync``) on float32 q, k, v as ``flash_attention_bshd`` takes
+    them (bf16 runs d 16 on ``flash_attention_wgmma``); it needs no
+    scratch. Counted in ``flash_attention_d16.launches``."""
     if q.dim() != 4 or q.shape[3] != 16:
         raise ValueError(f"flash_attention_d16 takes head dim 16, got q "
                          f"{tuple(q.shape)}")
     _check(q, k, v, torch.float32)
     name = "flash_attention_sm90_f32"
-    _check_grid(q, -(-q.shape[1] // 128))
-    lib = _library(name, 8, ("query", "key"))
+    lib = _library(name, 8, _F32_TILES)
+    _check_grid(q, -(-q.shape[1]
+                     // lib.flash_attention_sm90_f32_d16_query_tile()))
     out = torch.empty_like(q)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     _launch(lib, name, "flash_attention_d16", ptrs + (None,) * 4, q, k,

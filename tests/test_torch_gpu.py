@@ -665,14 +665,17 @@ def test_ssd_final_state_matches_plain(cuda, dtype, B, L, H, P, G, N):
 @pytest.mark.parametrize("B,Sq,Skv,H,KV,causal",
                          [(8, 128, 128, 4, 2, True), (2, 200, 200, 4, 1, True),
                           (1, 96, 160, 4, 2, False), (1, 160, 96, 2, 2, True),
-                          (1, 64, 64, 3, 3, False)])
+                          (1, 64, 64, 3, 3, False),
+                          # a query tile over many key tiles, both buffers
+                          (2, 1000, 1000, 4, 2, True)])
 def test_flash_at_head_dim_16_matches_plain(cuda, B, Sq, Skv, H, KV, causal,
                                             dtype):
     """reduced()'s head dim 16 runs on the card: bf16 on the wgmma kernel
     (``flash_attention_wgmma``, its 32-column tiles zero past d), float32
-    on the CUDA-core kernel (``flash_attention_d16``), each counted there
-    and nowhere else, within the sweep's tolerance of the plain version,
-    bit-identical on a rerun; a row that sees no key gives 0."""
+    on the 3xTF32 ``mma.sync`` kernel (``flash_attention_d16``), each
+    counted there and nowhere else, within the sweep's tolerance of the
+    plain version, bit-identical on a rerun; a row that sees no key gives
+    0."""
     g = torch.Generator(device=cuda).manual_seed(Sq + Skv)
     dt = getattr(torch, dtype)
     q = torch.randn(B, Sq, H, 16, device=cuda, generator=g).to(dt)
@@ -696,8 +699,8 @@ def test_flash_at_head_dim_16_matches_plain(cuda, B, Sq, Skv, H, KV, causal,
 
 @pytest.mark.gpu
 def test_cuda_core_kernel_at_head_dim_16_takes_float32_only(cuda):
-    """The CUDA-core d 16 kernel is float32's: bf16 (which runs d 16 on
-    the wgmma kernel) raises there and launches nothing."""
+    """The d 16 kernel of ``flash_d16.cuh`` is float32's: bf16 (which
+    runs d 16 on the wgmma kernel) raises there and launches nothing."""
     g = torch.Generator(device=cuda).manual_seed(16)
     q, k, v = (torch.randn(s, device=cuda, generator=g).bfloat16()
                for s in ((8, 128, 4, 16), (8, 128, 2, 16), (8, 128, 2, 16)))

@@ -16,7 +16,10 @@ inputs, under the limits of ``repro_torch.kernels.sweeps``.
   lo·hi + hi·lo and then hi·hi with fp32 sums, key tiles of 32, P split
   in registers, V^T's keys of each group of 8 in the order 0 2 4 6 1 3 5
   7; with ``products=1`` one TF32 product instead, the design the split
-  replaces.
+  replaces. With ``key_tile=64, key_split=2`` it is
+  ``csrc/flash_d16.cuh``, fp32 at head dim 16 on ``mma.sync`` (two warps
+  a row, each over half of every tile, merged at the end), whose m16n8k8
+  lane maps ``test_d16_fragment_maps_replay_plain_products`` replays.
 * ``ssd_design``: ``csrc/ssd_scan.cu``: chunk states, a state pass and
   chunk outputs at chunk length Q; in bf16 the operands computed in
   between are rounded where the kernel rounds them (B·w, h_in, M).
@@ -66,6 +69,8 @@ torch.set_num_threads(2)
 
 KEY_TILE = 128          # flash_attention_sm90.cu kBN
 F32_KEY_TILE = 32       # flash_attention_sm90_f32.cu kBN
+D16_KEY_TILE = 64       # flash_d16.cuh kKeys
+D16_KEY_SPLIT = 2       # flash_d16.cuh kKeySplit
 LOG2E = 1.4426950408889634
 
 
@@ -126,11 +131,16 @@ def _key_order(n: int) -> torch.Tensor:
     return p - q + torch.where(q < 4, 2 * q, 2 * (q - 4) + 1)
 
 
-def flash_3xtf32_design(q, k, v, causal: bool, products: int = 3
+def flash_3xtf32_design(q, k, v, causal: bool, products: int = 3,
+                        key_tile: int = F32_KEY_TILE, key_split: int = 1
                         ) -> torch.Tensor:
     """q [B, Sq, H, d], k/v [B, Skv, KV, d] fp32 → o fp32, the way the
     3xTF32 kernel computes it (``products=3``), or with one TF32 product
-    per matrix product (``products=1``)."""
+    per matrix product (``products=1``), over tiles of ``key_tile`` keys.
+    With ``key_split=2`` (the head-dim-16 kernel, ``key_tile=64``) two
+    warps share each row, each with its own online softmax over one half
+    of every tile, and the second's max, sum and O are merged into the
+    first's at the end, the first's rescaled first."""
     B, Sq, H, d = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     qf = q.float().permute(0, 2, 1, 3)                           # [B,H,Sq,d]
@@ -145,24 +155,40 @@ def flash_3xtf32_design(q, k, v, causal: bool, products: int = 3
 
     scale_log2 = (1.0 / math.sqrt(d)) * LOG2E
     rows = torch.arange(Sq)[:, None] + (Skv - Sq)
-    m = torch.full((B, H, Sq), -math.inf)
-    l = torch.zeros(B, H, Sq)
-    acc = torch.zeros(B, H, Sq, d)
-    for k0 in range(0, Skv, F32_KEY_TILE):
-        kt, vt = kf[:, :, k0:k0 + F32_KEY_TILE], vf[:, :, k0:k0 + F32_KEY_TILE]
-        s = product(qf, kt.transpose(-1, -2))
-        keys = torch.arange(k0, k0 + kt.shape[2])[None, :]
-        valid = keys <= rows if causal else torch.ones_like(keys <= rows)
-        s = s.masked_fill(~valid, -math.inf)
-        m_new = torch.maximum(m, s.amax(-1))
-        ms = torch.where(m_new == -math.inf, torch.zeros(()),
-                         m_new * scale_log2)
-        alpha = torch.exp2(m * scale_log2 - ms)
-        p = torch.exp2(s * scale_log2 - ms[..., None])
-        l = l * alpha + p.sum(-1)
-        order = _key_order(kt.shape[2])
-        acc = acc * alpha[..., None] + product(p[..., order], vt[..., order, :])
-        m = m_new
+    part_keys = key_tile // key_split
+    parts = []
+    for part in range(key_split):
+        m = torch.full((B, H, Sq), -math.inf)
+        l = torch.zeros(B, H, Sq)
+        acc = torch.zeros(B, H, Sq, d)
+        for k0 in range(part * part_keys, Skv, key_tile):
+            kt = kf[:, :, k0:k0 + part_keys]
+            vt = vf[:, :, k0:k0 + part_keys]
+            s = product(qf, kt.transpose(-1, -2))
+            keys = torch.arange(k0, k0 + kt.shape[2])[None, :]
+            valid = (keys <= rows if causal
+                     else torch.ones_like(keys <= rows))
+            s = s.masked_fill(~valid, -math.inf)
+            m_new = torch.maximum(m, s.amax(-1))
+            ms = torch.where(m_new == -math.inf, torch.zeros(()),
+                             m_new * scale_log2)
+            alpha = torch.exp2(m * scale_log2 - ms)
+            p = torch.exp2(s * scale_log2 - ms[..., None])
+            l = l * alpha + p.sum(-1)
+            order = _key_order(kt.shape[2])
+            acc = (acc * alpha[..., None]
+                   + product(p[..., order], vt[..., order, :]))
+            m = m_new
+        parts.append((m, l, acc))
+    m, l, acc = parts[0]
+    for m1, l1, acc1 in parts[1:]:
+        top = torch.maximum(m, m1)
+        ms = torch.where(top == -math.inf, torch.zeros(()), top * scale_log2)
+        f = torch.exp2(m * scale_log2 - ms)
+        f1 = torch.exp2(m1 * scale_log2 - ms)
+        l = l1 * f1 + l * f
+        acc = acc1 * f1[..., None] + acc * f[..., None]
+        m = top
     out = acc / torch.where(l == 0, torch.ones(()), l)[..., None]
     return out.permute(0, 2, 1, 3).contiguous()
 
@@ -340,6 +366,106 @@ def test_one_tf32_product_misses_the_fp32_limit():
                  - j).max()
     three = np.abs(flash_3xtf32_design(*tensors, causal).numpy() - j).max()
     assert one > FLASH_TOL["float32"] >= three
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,d,causal", FLASH_D16)
+def test_flash_d16_design_matches_jax(B, Sq, Skv, H, KV, d, causal):
+    """fp32 at head dim 16 (``flash_d16.cuh``: 3xTF32 on mma.sync over
+    64-key tiles, two warps a row each taking half of every tile, merged
+    at the end; P·V's keys of each group of 8 in the order 0 2 4 6 1 3 5
+    7) stays within the fp32 limit (2e-5) of the JAX package's kernel in
+    interpret mode; a row that sees no key gives 0."""
+    arrays = _flash_inputs(B, Sq, Skv, H, KV, d, seed=Sq + Skv)
+    j = _jax_flash_f32(arrays, causal)
+    t = flash_3xtf32_design(*(torch.from_numpy(a) for a in arrays), causal,
+                            key_tile=D16_KEY_TILE,
+                            key_split=D16_KEY_SPLIT).numpy()
+    assert np.isfinite(t).all()
+    np.testing.assert_allclose(t, j, atol=FLASH_TOL["float32"], rtol=0)
+    if causal and Sq > Skv:
+        assert not t[:, :Sq - Skv].any()
+
+
+def _mma_m16n8k8(a, b, c):
+    """One ``mma.sync.m16n8k8`` (tf32) from the 32 lanes' registers: a
+    [32, 4] (row g, k t), (g + 8, t), (g, t + 4), (g + 8, t + 4); b [32,
+    2] (k t, col g), (t + 4, g); c, the result, [32, 4] (g, 2t),
+    (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1); g = lane / 4, t = lane %
+    4. Each element of A and B is held by exactly one lane."""
+    lane = torch.arange(32)
+    g, t = lane // 4, lane % 4
+    A, B = torch.zeros(16, 8), torch.zeros(8, 8)
+    seen_a = torch.zeros(16, 8, dtype=torch.int64)
+    seen_b = torch.zeros(8, 8, dtype=torch.int64)
+    for r, (row, col) in enumerate(((g, t), (g + 8, t), (g, t + 4),
+                                    (g + 8, t + 4))):
+        A[row, col] = a[:, r]
+        seen_a[row, col] += 1
+    for r, row in enumerate((t, t + 4)):
+        B[row, g] = b[:, r]
+        seen_b[row, g] += 1
+    assert bool((seen_a == 1).all()) and bool((seen_b == 1).all())
+    D = A @ B
+    return c + torch.stack([D[g, 2 * t], D[g, 2 * t + 1], D[g + 8, 2 * t],
+                            D[g + 8, 2 * t + 1]], 1)
+
+
+@pytest.mark.parametrize("product", ["q_kt", "p_v"])
+def test_d16_fragment_maps_replay_plain_products(product):
+    """The register maps of ``flash_d16.cuh`` on a warp's 16 rows and one
+    64-key tile, lane by lane, give Q·Kᵀ and P·V bit for bit in fp32 (on
+    small integers, so every order of the sums is exact and only a wrong
+    map can differ). Q·Kᵀ: k-index t (t + 4) of k-step kk is column
+    4t + 2kk (+ 1), each lane's Q and K fragments one float4 of a row.
+    P·V: S's C fragment (keys 2t, 2t + 1 of each group of 8) taken as
+    P's A fragment (0, 2, 1, 3), which is P with the keys of a group in
+    ``_key_order``; B of n-tile nd is V's column 2g + nd; a lane's O
+    columns 4t .. 4t + 3 come from both n-tiles."""
+    rng = np.random.default_rng(23)
+    ints = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.integers(-4, 5, s).astype(np.float32))
+    lane = torch.arange(32)
+    g, t = lane // 4, lane % 4
+    cols = 4 * t[:, None] + torch.arange(4)                     # [32, 4]
+    if product == "q_kt":
+        Q, K = ints(16, 16), ints(64, 16)
+        q0, q8 = Q[g[:, None], cols], Q[g[:, None] + 8, cols]   # float4s
+        S = torch.zeros(16, 64)
+        for j in range(8):
+            kx = K[8 * j + g[:, None], cols]
+            c = torch.zeros(32, 4)
+            for kk in range(2):
+                a = torch.stack([q0[:, 2 * kk], q8[:, 2 * kk],
+                                 q0[:, 2 * kk + 1], q8[:, 2 * kk + 1]], 1)
+                c = _mma_m16n8k8(a, kx[:, 2 * kk:2 * kk + 2], c)
+            for e, (row, key) in enumerate(((g, 2 * t), (g, 2 * t + 1),
+                                            (g + 8, 2 * t),
+                                            (g + 8, 2 * t + 1))):
+                S[row, 8 * j + key] = c[:, e]
+        assert torch.equal(S, Q @ K.T)
+        return
+    P, V = ints(16, 64), ints(64, 16)
+    acc = torch.zeros(2, 32, 4)
+    for j in range(8):
+        c = torch.stack([P[g, 8 * j + 2 * t], P[g, 8 * j + 2 * t + 1],
+                         P[g + 8, 8 * j + 2 * t],
+                         P[g + 8, 8 * j + 2 * t + 1]], 1)   # S's C fragment
+        a = c[:, [0, 2, 1, 3]]
+        order = 8 * j + _key_order(8)
+        assert torch.equal(a, torch.stack(
+            [P[g, order[t]], P[g + 8, order[t]], P[g, order[t + 4]],
+             P[g + 8, order[t + 4]]], 1))
+        v0 = V[8 * j + 2 * t[:, None], 2 * g[:, None] + torch.arange(2)]
+        v1 = V[8 * j + 2 * t[:, None] + 1, 2 * g[:, None] + torch.arange(2)]
+        for nd in range(2):
+            acc[nd] = _mma_m16n8k8(a, torch.stack([v0[:, nd], v1[:, nd]], 1),
+                                   acc[nd])
+    O = torch.zeros(16, 16)
+    O[g[:, None], cols] = torch.stack([acc[0, :, 0], acc[1, :, 0],
+                                       acc[0, :, 1], acc[1, :, 1]], 1)
+    O[g[:, None] + 8, cols] = torch.stack([acc[0, :, 2], acc[1, :, 2],
+                                           acc[0, :, 3], acc[1, :, 3]], 1)
+    assert torch.equal(O, P @ V)
 
 
 def test_tf32_split_keeps_about_22_bits():

@@ -244,8 +244,9 @@ def test_ssd_state_variant_matches_ssd_chunked(B_, L, H, P, G, N, chunk):
 
 
 def test_attention_at_head_dim_16_takes_the_plain_version_on_the_cpu():
-    """reduced() has d_head 16, which the flash kernels do not take; on
-    the CPU the op runs its plain version, chosen by the device."""
+    """reduced() has d_head 16, which the flash kernels take on the card
+    (bf16 on the wgmma kernel, float32 on ``flash_d16.cuh``); on the CPU
+    the op runs its plain version, chosen by the device."""
     q = torch.randn(1, 8, 4, 16)
     kv = torch.randn(1, 8, 2, 16)
     out = flash_attention(q, kv, kv, causal=True)
