@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import sharding as shd
+from repro_torch import tracing
 from repro_torch.kernels.flash_attention.ops import flash_attention
 
 DEFAULT_Q_CHUNK = 512
@@ -42,11 +43,20 @@ def _dense_init(generator: torch.Generator, shape, in_axis_size: int
     return nn.Parameter(w * scale)
 
 
+def cast(w: torch.Tensor, dtype) -> torch.Tensor:
+    """A parameter in ``dtype``; a cast that changes its type is a
+    ``weight_cast`` span."""
+    if w.dtype == dtype:
+        return w
+    with tracing.span("weight_cast") as sp:
+        return sp.node(w.to(dtype))
+
+
 def weight(w: torch.Tensor, dtype) -> torch.Tensor:
     """A parameter as a product reads it: in ``dtype``, and under a mesh
     gathered over the data axes (FSDP's gather at use; its gradient is
     the reduce-scatter), its tensor-parallel split over "model" kept."""
-    return shd.gather_data_axes(w.to(dtype))
+    return shd.gather_data_axes(cast(w, dtype))
 
 
 def _ones(d: int, device) -> nn.Parameter:

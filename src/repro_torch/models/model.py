@@ -34,6 +34,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch import sharding as shd
+from repro_torch import tracing
 from repro_torch.configs import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
@@ -225,30 +226,40 @@ def _logits(cfg: ArchConfig, model: LM, h: torch.Tensor) -> torch.Tensor:
 # Block application (full sequence: forward / prefill)
 # ---------------------------------------------------------------------------
 def _apply_block(cfg: ArchConfig, blk: Block, h: torch.Tensor,
-                 aux: torch.Tensor, *, prefill: bool, cache_len: int = 0):
-    """Returns (h, aux, the layer's cache or None)."""
+                 aux: torch.Tensor, *, index: int, prefill: bool,
+                 cache_len: int = 0):
+    """Returns (h, aux, the layer's cache or None). The mixer and the
+    feed-forward part, each with its norm and residual add, are spans
+    named by their kind (``attn``, ``ssm``, ``mlp``, ``moe``) with
+    ``layer=index``."""
     mixer, ff = blk.kind.split("+")
     new_cache = None
-    x = blk.ln1(h, cfg.norm_eps)
-    if mixer == "attn":
-        kw = dict(theta=cfg.rope_theta, use_rope=cfg.positional == "rope")
-        if prefill:
-            out, (k, v) = L.attention_prefill(blk.attn, x,
-                                              cache_len=cache_len, **kw)
-            new_cache = {"k": k, "v": v}
+    with tracing.span(mixer, layer=index) as sp:
+        h = sp.input(h)
+        x = blk.ln1(h, cfg.norm_eps)
+        if mixer == "attn":
+            kw = dict(theta=cfg.rope_theta, use_rope=cfg.positional == "rope")
+            if prefill:
+                out, (k, v) = L.attention_prefill(blk.attn, x,
+                                                  cache_len=cache_len, **kw)
+                new_cache = {"k": k, "v": v}
+            else:
+                out = L.attention_fwd(blk.attn, x, causal=True, **kw)
+        elif prefill:
+            out, new_cache = SSM.ssm_fwd(blk.ssm, x, return_state=True)
         else:
-            out = L.attention_fwd(blk.attn, x, causal=True, **kw)
-    elif prefill:
-        out, new_cache = SSM.ssm_fwd(blk.ssm, x, return_state=True)
-    else:
-        out = SSM.ssm_fwd(blk.ssm, x)
-    h = _residual(h, out)
+            out = SSM.ssm_fwd(blk.ssm, x)
+        h = sp.output(_residual(h, out))
     if ff == "mlp":
-        h = _residual(h, blk.mlp(blk.ln2(h, cfg.norm_eps)))
+        with tracing.span("mlp", layer=index) as sp:
+            h = sp.input(h)
+            h = sp.output(_residual(h, blk.mlp(blk.ln2(h, cfg.norm_eps))))
     elif ff == "moe":
-        y, a = MOE.moe_fwd(blk.moe, blk.ln2(h, cfg.norm_eps))
-        h = _residual(h, y)
-        aux = aux + a
+        with tracing.span("moe", layer=index) as sp:
+            h = sp.input(h)
+            y, a = MOE.moe_fwd(blk.moe, blk.ln2(h, cfg.norm_eps))
+            h = sp.output(_residual(h, y))
+            aux = aux + a
     return h, aux, new_cache
 
 
@@ -352,7 +363,16 @@ def forward(cfg: ArchConfig, model: LM, batch: Batch, *,
     """→ (logits [B, S, V] float32, aux loss). ``remat`` ("none", "dots"
     or "full") applies to each layer; ``q_chunk`` changes nothing (the
     JAX package's query blocking)."""
-    dtype = compute_dtype
+    h, aux = _trunk(cfg, model, batch, compute_dtype, remat)
+    with tracing.span("head") as sp:
+        logits = sp.output(_seq_logits(cfg, model, sp.input(h)))
+    return logits, aux
+
+
+def _trunk(cfg: ArchConfig, model: LM, batch: Batch, dtype, remat: str
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The layers over the sequence → (h before the final norm, aux
+    loss)."""
     h = _embed_inputs(cfg, model, batch, dtype)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if cfg.enc_dec is not None:
@@ -363,13 +383,19 @@ def forward(cfg: ArchConfig, model: LM, batch: Batch, *,
         for blk in model.blocks:
             h = _remat(functools.partial(layer, blk=blk), remat)(h, enc_h)
     else:
-        def layer(h, aux, blk, end):
-            h, aux = _apply_block(cfg, blk, h, aux, prefill=False)[:2]
-            return (shd.constrain_batch(h) if end else h), aux
+        def layer(h, aux, blk, i):
+            h, aux = _apply_block(cfg, blk, h, aux, index=i,
+                                  prefill=False)[:2]
+            return (shd.constrain_batch(h) if _group_end(cfg, i) else h), aux
         for i, blk in enumerate(model.blocks):
-            h, aux = _remat(functools.partial(
-                layer, blk=blk, end=_group_end(cfg, i)), remat)(h, aux)
-    return shd.constrain_batch(_logits(cfg, model, h), extra=("model",)), aux
+            h, aux = _remat(functools.partial(layer, blk=blk, i=i),
+                            remat)(h, aux)
+    return h, aux
+
+
+def _seq_logits(cfg: ArchConfig, model: LM, h: torch.Tensor) -> torch.Tensor:
+    """The logits over the sequence, batch-sharded under a mesh."""
+    return shd.constrain_batch(_logits(cfg, model, h), extra=("model",))
 
 
 # ---------------------------------------------------------------------------
@@ -382,17 +408,20 @@ def loss_fn(cfg: ArchConfig, model: LM, batch: Batch, *,
     not negative, plus the MoE aux loss → (loss + aux, {"loss",
     "aux_loss", "n_tokens"}), as the JAX package's ``loss_fn``. Each
     position's log-sum-exp less its label's logit comes from
-    ``F.cross_entropy``, without the reference's [B, S, V] one-hot."""
-    logits, aux = forward(cfg, model, batch, compute_dtype=compute_dtype,
-                          remat=remat, q_chunk=q_chunk)
-    labels = batch["labels"].long()
-    valid = labels >= 0
-    safe = torch.where(valid, labels, torch.zeros_like(labels))
-    nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                          safe.reshape(-1), reduction="none"
-                          ).reshape(labels.shape)
-    n_valid = valid.sum().clamp(min=1)
-    loss = torch.where(valid, nll, torch.zeros_like(nll)).sum() / n_valid
+    ``F.cross_entropy``, without the reference's [B, S, V] one-hot. The
+    final norm, the logits and the loss are the ``head`` span."""
+    h, aux = _trunk(cfg, model, batch, compute_dtype, remat)
+    with tracing.span("head") as sp:
+        logits = _seq_logits(cfg, model, sp.input(h))
+        labels = batch["labels"].long()
+        valid = labels >= 0
+        safe = torch.where(valid, labels, torch.zeros_like(labels))
+        nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                              safe.reshape(-1), reduction="none"
+                              ).reshape(labels.shape)
+        n_valid = valid.sum().clamp(min=1)
+        loss = sp.output(torch.where(valid, nll, torch.zeros_like(nll)
+                                     ).sum() / n_valid)
     return loss + aux, {"loss": loss, "aux_loss": aux,
                         "n_tokens": n_valid.float()}
 
@@ -430,8 +459,13 @@ def prefill(cfg: ArchConfig, model: LM, batch: Batch, cache_len: int, *,
             compute_dtype=torch.bfloat16, q_chunk: int = 512
             ) -> Tuple[torch.Tensor, Cache]:
     """→ (logits [B, V] of the last position, caches of ``cache_len``
-    positions)."""
-    dtype = compute_dtype
+    positions). The whole call is the ``serve.prefill`` span."""
+    with tracing.span("serve.prefill"):
+        return _prefill(cfg, model, batch, cache_len, compute_dtype)
+
+
+def _prefill(cfg: ArchConfig, model: LM, batch: Batch, cache_len: int,
+             dtype) -> Tuple[torch.Tensor, Cache]:
     h = _embed_inputs(cfg, model, batch, dtype)
     caches = []
     if cfg.enc_dec is not None:
@@ -442,12 +476,13 @@ def prefill(cfg: ArchConfig, model: LM, batch: Batch, cache_len: int, *,
     else:
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for i, blk in enumerate(model.blocks):
-            h, aux, c = _apply_block(cfg, blk, h, aux, prefill=True,
-                                     cache_len=cache_len)
+            h, aux, c = _apply_block(cfg, blk, h, aux, index=i,
+                                     prefill=True, cache_len=cache_len)
             if _group_end(cfg, i):
                 h = shd.constrain_batch(h)
             caches.append(c)
-    return _logits(cfg, model, h[:, -1:])[:, 0], caches
+    with tracing.span("head"):
+        return _logits(cfg, model, h[:, -1:])[:, 0], caches
 
 
 # ---------------------------------------------------------------------------
@@ -459,33 +494,41 @@ def decode_step(cfg: ArchConfig, model: LM, cache: Cache,
                 compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, Cache]:
     """token: [B, 1]; pos: the write index → (logits [B, V], caches).
     Attention caches are written at ``pos`` in place; SSM layers get new
-    state tensors."""
-    dtype = compute_dtype
+    state tensors. The whole call is the ``serve.decode`` span, each
+    layer's parts spans of their kind as in ``_apply_block``."""
+    with tracing.span("serve.decode"):
+        return _decode(cfg, model, cache, token, pos, compute_dtype)
+
+
+def _decode(cfg: ArchConfig, model: LM, cache: Cache, token: torch.Tensor,
+            pos: int, dtype) -> Tuple[torch.Tensor, Cache]:
     h = L.embed_tokens(model.embed, token, dtype)
     if cfg.positional == "sinusoidal":
         h = h + L.sinusoidal_positions(1, cfg.d_model, offset=pos,
                                        device=h.device).to(dtype)
     new_caches = []
-    for blk, c in zip(model.blocks, cache):
+    for i, (blk, c) in enumerate(zip(model.blocks, cache)):
         mixer, ff = blk.kind.split("+")
-        x = blk.ln1(h, cfg.norm_eps)
-        if mixer == "attn":
-            out, (k, v) = L.attention_decode(
-                blk.attn, x, (c["k"], c["v"]), pos, theta=cfg.rope_theta,
-                use_rope=cfg.positional == "rope")
-            h = _residual(h, out)
-            new = {**c, "k": k, "v": v}
-        else:
-            out, new = SSM.ssm_decode(blk.ssm, x, c)
-            h = _residual(h, out)
+        with tracing.span(mixer, layer=i):
+            x = blk.ln1(h, cfg.norm_eps)
+            if mixer == "attn":
+                out, (k, v) = L.attention_decode(
+                    blk.attn, x, (c["k"], c["v"]), pos, theta=cfg.rope_theta,
+                    use_rope=cfg.positional == "rope")
+                h = _residual(h, out)
+                new = {**c, "k": k, "v": v}
+            else:
+                out, new = SSM.ssm_decode(blk.ssm, x, c)
+                h = _residual(h, out)
         if cfg.enc_dec is not None:
             x = blk.ln_x(h, cfg.norm_eps)
             h = _residual(h, L.attention_readonly(blk.xattn, x,
                                                   (c["xk"], c["xv"])))
-        if ff == "mlp":
-            h = _residual(h, blk.mlp(blk.ln2(h, cfg.norm_eps)))
-        elif ff == "moe":
-            y, _ = MOE.moe_fwd(blk.moe, blk.ln2(h, cfg.norm_eps))
-            h = _residual(h, y)
+        if ff in ("mlp", "moe"):
+            with tracing.span(ff, layer=i):
+                x = blk.ln2(h, cfg.norm_eps)
+                y = blk.mlp(x) if ff == "mlp" else MOE.moe_fwd(blk.moe, x)[0]
+                h = _residual(h, y)
         new_caches.append(new)
-    return _logits(cfg, model, h)[:, 0], new_caches
+    with tracing.span("head"):
+        return _logits(cfg, model, h)[:, 0], new_caches

@@ -23,8 +23,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import tracing
 from repro_torch.configs import MoEConfig
-from repro_torch.models.layers import _dense_init
+from repro_torch.models.layers import _dense_init, cast
 
 CAPACITY_FACTOR = 1.25
 
@@ -76,49 +77,62 @@ def _moe_local(w: Dict[str, torch.Tensor], cfg: MoEConfig,
     dtype, dev = xf.dtype, xf.device
     C = _capacity(T, cfg)
 
-    logits = torch.einsum("td,de->te", xf, w["router"].to(dtype))
-    probs = torch.softmax(logits.float(), dim=-1)              # [T, E]
-    top_p, top_e = _top_k(probs, k)
-    top_p = top_p / top_p.sum(-1, keepdim=True)
+    with tracing.span("moe.route") as sp:
+        logits = torch.einsum("td,de->te", sp.input(xf),
+                              cast(w["router"], dtype))
+        probs = torch.softmax(logits.float(), dim=-1)          # [T, E]
+        top_p, top_e = _top_k(probs, k)
+        top_p = sp.output(top_p / top_p.sum(-1, keepdim=True))
 
-    # load-balance aux loss (Switch): E · Σ_e f_e · p̄_e, over the local
-    # experts; the sum over the "model" axis restores the whole
-    local = slice(e0, e0 + n_local)
-    me = probs.mean(0)[local]                                  # [n_local]
+        # load-balance aux loss (Switch): E · Σ_e f_e · p̄_e, over the
+        # local experts; the sum over the "model" axis restores the whole
+        local = slice(e0, e0 + n_local)
+        me = probs.mean(0)[local]                              # [n_local]
 
     # sequential-choice positions within each expert (GShard order); the
     # tokens that are dropped or not local are written to one extra row,
     # cut off below, so that every shape is static
-    buf = torch.zeros((n_local + 1, C, d), dtype=dtype, device=dev)
-    base = torch.zeros(E, dtype=torch.int64, device=dev)
-    ce = torch.zeros(n_local, dtype=torch.float32, device=dev)
-    experts = torch.arange(E, device=dev)
-    gathers = []
-    for j in range(k):
-        e_j = top_e[:, j]                                      # [T]
-        onehot = (e_j[:, None] == experts[None, :]).long()     # [T, E]
-        pos_full = base[None, :] + onehot.cumsum(0) - 1
-        base = base + onehot.sum(0)
-        pos_j = pos_full.gather(1, e_j[:, None])[:, 0]
-        keep = (pos_j < C) & (e_j >= e0) & (e_j < e0 + n_local)
-        ce = ce + onehot.sum(0)[local].float() / (T * k)
-        # a kept (expert, position) is taken by one token only
-        el = torch.where(keep, e_j - e0, n_local)
-        pc = torch.where(keep, pos_j, 0)
-        buf = buf.index_put((el, pc), xf)
-        gathers.append((torch.where(keep, el, 0), pc, top_p[:, j], keep))
-    buf = buf[:n_local]
+    with tracing.span("moe.dispatch") as sp:
+        xd = sp.input(xf)
+        buf = torch.zeros((n_local + 1, C, d), dtype=dtype, device=dev)
+        base = torch.zeros(E, dtype=torch.int64, device=dev)
+        ce = torch.zeros(n_local, dtype=torch.float32, device=dev)
+        experts = torch.arange(E, device=dev)
+        gathers = []
+        for j in range(k):
+            e_j = top_e[:, j]                                  # [T]
+            onehot = (e_j[:, None] == experts[None, :]).long()  # [T, E]
+            pos_full = base[None, :] + onehot.cumsum(0) - 1
+            base = base + onehot.sum(0)
+            pos_j = pos_full.gather(1, e_j[:, None])[:, 0]
+            keep = (pos_j < C) & (e_j >= e0) & (e_j < e0 + n_local)
+            ce = ce + onehot.sum(0)[local].float() / (T * k)
+            # a kept (expert, position) is taken by one token only
+            el = torch.where(keep, e_j - e0, n_local)
+            pc = torch.where(keep, pos_j, 0)
+            buf = buf.index_put((el, pc), xd)
+            gathers.append((torch.where(keep, el, 0), pc, top_p[:, j], keep))
+        buf = sp.output(buf[:n_local])
+    # every expert's assignments (base): those past C at a local expert
+    # are the dropped ones
+    tracing.count("moe.expert_load", base, capacity=C, assignments=T * k,
+                  first=e0, experts=n_local)
 
-    g = torch.einsum("ecd,edf->ecf", buf, w["w_gate"].to(dtype))
-    u = torch.einsum("ecd,edf->ecf", buf, w["w_up"].to(dtype))
-    ye = torch.einsum("ecf,efd->ecd", F.silu(g) * u,
-                      w["w_down"].to(dtype))                  # [nl, C, d]
+    with tracing.span("moe.experts") as sp:
+        xe = sp.input(buf)
+        g = torch.einsum("ecd,edf->ecf", xe, cast(w["w_gate"], dtype))
+        u = torch.einsum("ecd,edf->ecf", xe, cast(w["w_up"], dtype))
+        ye = sp.output(torch.einsum("ecf,efd->ecd", F.silu(g) * u,
+                                    cast(w["w_down"], dtype)))  # [nl, C, d]
 
-    y = torch.zeros((T, d), dtype=dtype, device=dev)
-    for el, pc, w, keep in gathers:
-        contrib = ye[el, pc]                                   # [T, d]
-        y = y + torch.where(keep[:, None], contrib * w[:, None].to(dtype),
-                            torch.zeros((), dtype=dtype, device=dev))
+    with tracing.span("moe.combine") as sp:
+        yc = sp.input(ye)
+        y = torch.zeros((T, d), dtype=dtype, device=dev)
+        for el, pc, p, keep in gathers:
+            contrib = yc[el, pc]                               # [T, d]
+            y = y + torch.where(keep[:, None], contrib * p[:, None].to(dtype),
+                                torch.zeros((), dtype=dtype, device=dev))
+        y = sp.output(y)
 
     aux = E * (me * ce).sum() * cfg.aux_loss_weight
     return y, aux

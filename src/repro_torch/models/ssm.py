@@ -19,7 +19,7 @@ from torch import nn
 
 from repro_torch.configs import SSMConfig
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
-from repro_torch.models.layers import _dense_init, weight
+from repro_torch.models.layers import _dense_init, cast, weight
 
 
 def ssm_axes():
@@ -121,7 +121,7 @@ def ssm_fwd(ssm: SSM, x: torch.Tensor, return_state: bool = False):
     scan = ssd_scan(xs, dt, A, B_, C, chunk=cfg.chunk_size,
                     return_state=return_state)
     y, h_final = scan if return_state else (scan, None)
-    y = y + xs * ssm.D.to(dtype)[None, None, :, None]
+    y = y + xs * cast(ssm.D, dtype)[None, None, :, None]
     out = _gated_out(ssm, y.reshape(Bb, L, din), z, dtype)
 
     if return_state:
@@ -173,7 +173,7 @@ def ssm_decode(ssm: SSM, x: torch.Tensor, cache: Dict[str, torch.Tensor]):
     h = cache["h"].float() * decay[..., None, None] + dBx
     Ch = C.repeat_interleave(rep, dim=1)
     y = torch.einsum("bhpn,bhn->bhp", h, Ch.float()).to(dtype)
-    y = y + xs * ssm.D.to(dtype)[None, :, None]
+    y = y + xs * cast(ssm.D, dtype)[None, :, None]
     out = _gated_out(ssm, y.reshape(Bb, 1, din), z, dtype)
     return out, {"conv": new_conv, "h": h.to(dtype)}
 

@@ -25,6 +25,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch import sharding as shd
+from repro_torch import tracing
 from repro_torch.configs import ArchConfig
 from repro_torch.models import model as M
 from repro_torch.optim import adamw_update, clip_by_global_norm, cosine_schedule
@@ -51,13 +52,16 @@ def make_train_step(cfg: ArchConfig, hp: TrainHParams):
     """Returns train_step(state, batch) -> (state, metrics): metrics
     ``loss``, ``aux_loss``, ``n_tokens`` (means over the microbatches),
     ``grad_norm`` (before clipping), ``lr`` and ``loss_total`` (loss +
-    aux), as 0-d float32 tensors."""
+    aux), as 0-d float32 tensors. Its phases are the spans
+    ``train.forward``, ``train.backward`` and ``train.optimizer``."""
 
     def loss_and_backward(model: M.LM, mb: M.Batch):
-        total, metrics = M.loss_fn(cfg, model, mb,
-                                   compute_dtype=hp.compute_dtype,
-                                   remat=hp.remat, q_chunk=hp.q_chunk)
-        total.backward()
+        with tracing.span("train.forward"):
+            total, metrics = M.loss_fn(cfg, model, mb,
+                                       compute_dtype=hp.compute_dtype,
+                                       remat=hp.remat, q_chunk=hp.q_chunk)
+        with tracing.span("train.backward"):
+            total.backward()
         return total.detach(), {k: v.detach() for k, v in metrics.items()}
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
@@ -87,14 +91,15 @@ def make_train_step(cfg: ArchConfig, hp: TrainHParams):
             metrics = {k: (sum((m[k] for m in ms[1:]), ms[0][k]) + m0[k]) / n
                        for k in m0}
             grads = {k: p.grad / n for k, p in params.items()}
-        grads, gnorm = clip_by_global_norm(grads, hp.clip_norm)
-        for p in params.values():
-            p.grad = None
-        lr = cosine_schedule(state.step, hp.warmup_steps, hp.total_steps,
-                             hp.peak_lr)
-        opt = adamw_update(grads, state.opt, params, lr=lr,
-                           weight_decay=hp.weight_decay)
-        del grads
+        with tracing.span("train.optimizer"):
+            grads, gnorm = clip_by_global_norm(grads, hp.clip_norm)
+            for p in params.values():
+                p.grad = None
+            lr = cosine_schedule(state.step, hp.warmup_steps,
+                                 hp.total_steps, hp.peak_lr)
+            opt = adamw_update(grads, state.opt, params, lr=lr,
+                               weight_decay=hp.weight_decay)
+            del grads
         new_state = TrainState(params=model, opt=opt, step=state.step + 1)
         metrics = dict(metrics, grad_norm=gnorm, lr=lr, loss_total=l)
         return new_state, metrics
@@ -155,10 +160,12 @@ def _gathered_step(cfg: ArchConfig, hp: TrainHParams, model: M.LM,
     acc, losses, ms = {}, [], []
     with _swapped(model, work):
         for mb in mbs:
-            total, metrics = M.loss_fn(cfg, model, mb,
-                                       compute_dtype=hp.compute_dtype,
-                                       remat=hp.remat, q_chunk=hp.q_chunk)
-            gs = torch.autograd.grad(total, list(work.values()))
+            with tracing.span("train.forward"):
+                total, metrics = M.loss_fn(cfg, model, mb,
+                                           compute_dtype=hp.compute_dtype,
+                                           remat=hp.remat, q_chunk=hp.q_chunk)
+            with tracing.span("train.backward"):
+                gs = torch.autograd.grad(total, list(work.values()))
             for k, g in zip(work, gs):
                 acc[k] = g.float() if k not in acc else acc[k] + g.float()
             losses.append(total.detach())
