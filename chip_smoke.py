@@ -181,7 +181,9 @@ JSON line; any failure exits non-zero:
           sharded by the loader): exactly 56 flash_attention_wgmma / 96
           ssd_scan_wgmma / 48 flash_attention_wgmma launches a step (and
           28 / 0 / 24 flash_attention_backward_wgmma, 0 / 48 / 0
-          ssd_scan_backward_wgmma) and nothing else,
+          ssd_scan_backward_wgmma, 0 / 0 / 48 slot_map, 72 gather_rows,
+          72 gather_sum and 24 gather_dot of the MoE dispatch) and
+          nothing else,
           losses within DIST_LOSS_RTOL and grad norms within
           DIST_GNORM_RTOL of the mesh-less steps, ms per step, peak memory
           and DTensor's host overhead per step; then the port's dry-run
@@ -192,7 +194,10 @@ JSON line; any failure exits non-zero:
           peak estimate must lie within DRYRUN_PEAK_RATIO of the peak the
           card measured for that step; per-device FLOPs, useful ratio,
           collectives and wall time (the roofline terms are the simulated
-          TPU-v5e pod's, not the card's)
+          TPU-v5e pod's, not the card's); last the MoE dispatch's four
+          kernels at granite-moe-1b-a400m's train step and chat decode
+          step shapes against their plain versions, and timed at the
+          train shape for the ``kernels`` line (``moe_dispatch_rows``)
   paper4  the paper's §4 experiment (examples/vos_scheduler_demo.py) on the
           port's core: six heuristics, 120 jobs each, a 70% power cap; the
           VoS must equal the JAX package's, recorded below
@@ -548,6 +553,16 @@ def zeroed_counters() -> dict:
     for c in counters.values():
         c.launches = 0
     segment_reduce.scalar_launches = segment_reduce.vector_launches = 0
+    return counters
+
+
+def zeroed_moe_counters() -> dict:
+    """The launch counters of the MoE dispatch's kernels by name, each set
+    to 0."""
+    from repro_torch.kernels.moe_dispatch import kernel as MK
+    counters = {k: getattr(MK, k) for k in MOE_LAUNCHES_PER_LAYER}
+    for c in counters.values():
+        c.launches = 0
     return counters
 
 
@@ -2539,6 +2554,15 @@ def train_path(dev, gen, smi0) -> list:
 # expert-parallel branch on the mesh
 DIST_ARCHS = (("qwen3-1.7b", 2), ("mamba2-1.3b", 1),
               ("granite-moe-1b-a400m", 1))
+# the MoE dispatch's kernel launches a MoE layer a step, remat "full": the
+# slot map, the dispatch's row gather and the combine's weighted sum in the
+# forward and its recompute; the combine's weighted row gather and dot and
+# the dispatch's sum in the backward
+MOE_LAUNCHES_PER_LAYER = {"slot_map": 2, "gather_rows": 3, "gather_sum": 3,
+                          "gather_dot": 1}
+# granite-moe-1b-a400m's MoE at the benchmark's shapes: a train step's
+# tokens (batch 2 × 4,096) and a chat decode step's (16 chats)
+MOE_TOKENS = {"train": 8192, "decode": 16}
 # on one rank DTensor dispatches the same local ops in the same order, so
 # the mesh's steps repeat the mesh-less ones: the loss, the loss with the
 # MoE's aux term (loss_total) and the grad norm within 1e-6 relative (a few
@@ -2670,9 +2694,11 @@ def dist_child() -> None:
                 = 2 * n_path
             want[BACKWARD_KERNEL[attn]] = n_path
             n_moe = sum(k.endswith("moe") for k in cfg.layer_kinds())
+            want.update({k: n * n_moe
+                         for k, n in MOE_LAUNCHES_PER_LAYER.items()})
             runs = {}
             for name, m in (("meshless", None), ("mesh", mesh)):
-                counters = zeroed_counters()
+                counters = {**zeroed_counters(), **zeroed_moe_counters()}
                 recs = []
                 torch.cuda.reset_peak_memory_stats(dev)
                 for k in moe_entries:
@@ -2750,6 +2776,9 @@ def dist_child() -> None:
                 "backward_launches": sum(
                     r["launches"][BACKWARD_KERNEL[attn]]
                     for r in runs["mesh"]["steps"]),
+                "moe_launches": {k: sum(r["launches"][k]
+                                        for r in runs["meshless"]["steps"])
+                                 for k in MOE_LAUNCHES_PER_LAYER},
                 "peak_memory": runs["meshless"]["peak_memory"],
                 "mesh_peak_memory": runs["mesh"]["peak_memory"]}
         dist.destroy_process_group()
@@ -2831,7 +2860,128 @@ def dist_kernel_rows(dev, gen, smi0, summary, train_rows,
         rows.append((f"{mod}.{bk} {arch} train step on a 1x1 NCCL mesh",
                      src, replaces, rec["backward_launches"],
                      tb["max_abs_err"], tb))
-    return rows
+    moe_launches = {k: sum(rec["moe_launches"][k]
+                           for rec in summary["archs"].values())
+                    for k in MOE_LAUNCHES_PER_LAYER}
+    return rows + moe_dispatch_rows(dev, gen, smi0, moe_launches)
+
+
+def _rows_read(idx, n_rows, row_bytes) -> int:
+    """The bytes of the distinct rows of an [n_rows, ·] source that idx
+    reads (an index outside [0, n_rows) reads none)."""
+    import torch
+    inside = idx[(idx >= 0) & (idx < n_rows)]
+    return torch.unique(inside).numel() * row_bytes
+
+
+def moe_dispatch_rows(dev, gen, smi0, launches) -> list:
+    """The MoE dispatch's kernels (``kernels/moe_dispatch``) at
+    granite-moe-1b-a400m's shapes on the main path (MOE_TOKENS: a train
+    step's 8,192 tokens and a chat decode step's 16; 32 experts, top 8,
+    d 1,024, its capacity, bf16), on a routing that crowds the first
+    experts so that choices drop: each against its plain version, the
+    slot map exactly, the gathers in bf16 within one unit in the last
+    place of the plain row (and 1e-6 of the largest, where a sum of k
+    products cancels and the sums' order differs), ``gather_dot`` in fp32
+    within 1e-5 of the largest; a rerun bitwise equal. At the train
+    shape each kernel and its plain version are timed by CUDA events
+    beside the bound (bytes: the distinct source rows read once, each
+    output once), and every use of a train step gets a ``times`` line.
+    Returns the ``kernels`` rows, one a kernel at its forward use, with
+    ``launches`` the dist phase's granite steps' count."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.moe_dispatch import kernel as MK
+    from repro_torch.models.moe import _capacity
+
+    mc = get_arch("granite-moe-1b-a400m").moe
+    E, k, d = mc.n_experts, mc.top_k, get_arch("granite-moe-1b-a400m").d_model
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows, errs = [], {}
+    for where, T in MOE_TOKENS.items():
+        C = _capacity(T, mc)
+        # a lean towards the first experts drops about 30% of a train
+        # step's choices, as the benchmark's router does
+        score = torch.randn(T, E, device=dev, generator=gen) \
+            + torch.linspace(3.0, 0, E, device=dev)
+        top_p, top_e = torch.topk(torch.softmax(score, -1), k)
+        top_p = (top_p / top_p.sum(-1, keepdim=True)).contiguous()
+        m = MK.slot_map(top_e, C, E, E, 0)
+        again = MK.slot_map(top_e, C, E, E, 0)
+        plain = MK.slot_map_plain(top_e, C, E, E, 0)
+        for f in m._fields:
+            require(torch.equal(getattr(m, f), getattr(plain, f))
+                    and torch.equal(getattr(m, f), getattr(again, f)),
+                    f"slot_map {where} [{T}, {k}] of {E}, C {C}: {f} "
+                    "differs from the plain version or a rerun")
+        dropped = float((m.slot == E * C).float().mean())
+        S = E * C
+
+        def rand(*shape):
+            return torch.randn(*shape, device=dev, generator=gen).to(bf16)
+        x, ye, dy, dbuf = rand(T, d), rand(S, d), rand(T, d), rand(S, d)
+        # (use, kernel, its arguments, bytes read and written, operations)
+        uses = [("dispatch", "gather_rows", (x, m.tok),
+                 _rows_read(m.tok, T, 2 * d) + S * (2 * d + 8), 0),
+                ("combine", "gather_sum", (ye, m.slot, top_p),
+                 _rows_read(m.slot, S, 2 * d) + T * (2 * d + 12 * k),
+                 2 * (m.slot < S).sum().item() * d),
+                ("combine backward, dye", "gather_rows",
+                 (dy, m.tok, top_p.view(-1), m.choice),
+                 _rows_read(m.tok, T, 2 * d) + T * k * 4 + S * (2 * d + 16),
+                 S * d),
+                ("combine backward, dp", "gather_dot", (ye, m.slot, dy),
+                 _rows_read(m.slot, S, 2 * d) + T * (2 * d + 12 * k),
+                 2 * (m.slot < S).sum().item() * d),
+                ("dispatch backward", "gather_sum", (dbuf, m.slot),
+                 _rows_read(m.slot, S, 2 * d) + T * (2 * d + 8 * k),
+                 (m.slot < S).sum().item() * d)]
+        for use, name, args, nbytes, flops in uses:
+            fn, ref = getattr(MK, name), getattr(MK, name + "_plain")
+            got, want = fn(*args), ref(*args)
+            require(torch.equal(got, fn(*args)), f"{name} {where} {use}: "
+                    "a rerun differs")
+            diff = (got.double() - want.double()).abs()
+            big = want.double().abs()
+            if name == "gather_dot":
+                ok = float(diff.max()) <= 1e-5 * float(big.max())
+            else:
+                ok = bool((diff <= 2.0 ** -7 * big + 1e-6 * big.max()).all())
+            err = float(diff.max())
+            require(got.dtype == want.dtype and ok,
+                    f"{name} {where} {use}: max |kernel - plain| {err}")
+            errs[name] = max(errs.get(name, 0.0), err)
+            if where != "train":
+                continue
+            t = {**batches(lambda: fn(*args), "ms"),
+                 "plain_ms": cuda_ms(lambda: ref(*args), 5, 1),
+                 "library_ms": None, **bound(nbytes, flops, "float32"),
+                 "bytes": nbytes, "flops": flops}
+            emit("times", case=f"moe_dispatch.{name} granite-moe-1b-a400m "
+                 f"{where} {use}", tokens=T, experts=E, top_k=k,
+                 capacity=C, d=d, dropped_share=dropped, max_abs_err=err,
+                 nvidia_smi=smi0, **t)
+            if name not in {r[0] for r in rows}:
+                rows.append((name, t))
+        emit("kernel", case=f"moe_dispatch granite-moe-1b-a400m {where}",
+             tokens=T, experts=E, top_k=k, capacity=C, d=d,
+             dropped_share=dropped, max_abs_err=errs)
+        if where == "train":
+            nbytes = top_e.numel() * 8 + sum(
+                t.numel() * 8 for t in m)
+            t = {**batches(lambda: MK.slot_map(top_e, C, E, E, 0), "ms"),
+                 "plain_ms": cuda_ms(lambda: MK.slot_map_plain(
+                     top_e, C, E, E, 0), 5, 1),
+                 "library_ms": None, **bound(nbytes, 0, "float32"),
+                 "bytes": nbytes}
+            emit("times", case="moe_dispatch.slot_map granite-moe-1b-a400m "
+                 "train", tokens=T, experts=E, top_k=k, capacity=C,
+                 dropped_share=dropped, nvidia_smi=smi0, **t)
+            rows.insert(0, ("slot_map", t))
+    errs["slot_map"] = 0.0
+    return [(f"moe_dispatch.{name} granite-moe-1b-a400m train step",
+             "moe_dispatch", None, launches[name], errs[name], t)
+            for name, t in rows]
 
 
 def dist_path() -> dict:

@@ -27,7 +27,8 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("window_agg", "flash_attention_sm90", "flash_attention_sm90_f32",
-           "flash_attention_bwd_sm90", "ssd_scan", "ssd_scan_bwd_sm90")
+           "flash_attention_bwd_sm90", "ssd_scan", "ssd_scan_bwd_sm90",
+           "moe_dispatch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -3,7 +3,9 @@
 The port of the JAX package's ``models/moe.py``: tokens are packed into a
 per-expert [E, C, d] buffer in GShard's sequential-choice order, run
 through batched expert products, and gathered back, so that the same
-tokens are dropped at the same capacity.
+tokens are dropped at the same capacity. One slot map (token → slot and
+its inverse, ``kernels/moe_dispatch``) carries the dispatch, the combine
+and both of their backwards as gathers: no scatter accumulates anywhere.
 
 Expert parallelism is explicit, as in the JAX package: when a mesh with a
 "model" axis that divides the experts is active
@@ -25,6 +27,8 @@ from torch import nn
 
 from repro_torch import tracing
 from repro_torch.configs import MoEConfig
+from repro_torch.kernels.moe_dispatch import (gather_dot, gather_rows,
+                                             gather_sum, slot_map)
 from repro_torch.models.layers import _dense_init, cast
 
 CAPACITY_FACTOR = 1.25
@@ -65,6 +69,46 @@ def _top_k(probs: torch.Tensor, k: int):
     return vals[:, :k], idx[:, :k]
 
 
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    """t as contiguous rows [..., d] → [N, d]."""
+    return t.reshape(-1, t.shape[-1]).contiguous()
+
+
+class _Dispatch(torch.autograd.Function):
+    """buf[s] = x[tok[s]], zero in an empty slot. The gradient is a
+    gather too: dx[t] = Σ_j dbuf[slot[t, j]] over the kept choices."""
+
+    @staticmethod
+    def forward(ctx, x, tok, slot):
+        ctx.save_for_backward(slot)
+        return gather_rows(_rows(x), tok)
+
+    @staticmethod
+    def backward(ctx, dbuf):
+        (slot,) = ctx.saved_tensors
+        return gather_sum(_rows(dbuf), slot), None, None
+
+
+class _Combine(torch.autograd.Function):
+    """y[t] = Σ_j p[t, j] · ye[slot[t, j]] over the kept choices. The
+    gradient goes back through the inverse map, by gathers:
+    dye[s] = p[choice[s]] · dy[tok[s]] (p flat) and
+    dp[t, j] = ⟨dy[t], ye[slot[t, j]]⟩, zero where dropped."""
+
+    @staticmethod
+    def forward(ctx, ye, p, slot, tok, choice):
+        p = p.contiguous()
+        ctx.save_for_backward(ye, p, slot, tok, choice)
+        return gather_sum(_rows(ye), slot, p)
+
+    @staticmethod
+    def backward(ctx, dy):
+        ye, p, slot, tok, choice = ctx.saved_tensors
+        dy = dy.contiguous()
+        dye = gather_rows(dy, tok, p.view(-1), choice).view(ye.shape)
+        return dye, gather_dot(_rows(ye), slot, dy), None, None, None
+
+
 def _moe_local(w: Dict[str, torch.Tensor], cfg: MoEConfig,
                xf: torch.Tensor, n_local: int, e0: int
                ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -74,7 +118,7 @@ def _moe_local(w: Dict[str, torch.Tensor], cfg: MoEConfig,
     part over those experts)."""
     T, d = xf.shape
     E, k = cfg.n_experts, cfg.top_k
-    dtype, dev = xf.dtype, xf.device
+    dtype = xf.dtype
     C = _capacity(T, cfg)
 
     with tracing.span("moe.route") as sp:
@@ -89,34 +133,17 @@ def _moe_local(w: Dict[str, torch.Tensor], cfg: MoEConfig,
         local = slice(e0, e0 + n_local)
         me = probs.mean(0)[local]                              # [n_local]
 
-    # sequential-choice positions within each expert (GShard order); the
-    # tokens that are dropped or not local are written to one extra row,
-    # cut off below, so that every shape is static
+    # each choice's slot and each slot's token, in GShard order; the
+    # buffer is filled by one gather, an empty slot with zeros
     with tracing.span("moe.dispatch") as sp:
         xd = sp.input(xf)
-        buf = torch.zeros((n_local + 1, C, d), dtype=dtype, device=dev)
-        base = torch.zeros(E, dtype=torch.int64, device=dev)
-        ce = torch.zeros(n_local, dtype=torch.float32, device=dev)
-        experts = torch.arange(E, device=dev)
-        gathers = []
-        for j in range(k):
-            e_j = top_e[:, j]                                  # [T]
-            onehot = (e_j[:, None] == experts[None, :]).long()  # [T, E]
-            pos_full = base[None, :] + onehot.cumsum(0) - 1
-            base = base + onehot.sum(0)
-            pos_j = pos_full.gather(1, e_j[:, None])[:, 0]
-            keep = (pos_j < C) & (e_j >= e0) & (e_j < e0 + n_local)
-            ce = ce + onehot.sum(0)[local].float() / (T * k)
-            # a kept (expert, position) is taken by one token only
-            el = torch.where(keep, e_j - e0, n_local)
-            pc = torch.where(keep, pos_j, 0)
-            buf = buf.index_put((el, pc), xd)
-            gathers.append((torch.where(keep, el, 0), pc, top_p[:, j], keep))
-        buf = sp.output(buf[:n_local])
+        m = slot_map(top_e, C, E, n_local, e0)
+        buf = sp.output(_Dispatch.apply(xd, m.tok, m.slot).view(n_local, C, d))
     # every expert's assignments (base): those past C at a local expert
     # are the dropped ones
-    tracing.count("moe.expert_load", base, capacity=C, assignments=T * k,
+    tracing.count("moe.expert_load", m.base, capacity=C, assignments=T * k,
                   first=e0, experts=n_local)
+    ce = m.base[local].float() / (T * k)
 
     with tracing.span("moe.experts") as sp:
         xe = sp.input(buf)
@@ -127,12 +154,7 @@ def _moe_local(w: Dict[str, torch.Tensor], cfg: MoEConfig,
 
     with tracing.span("moe.combine") as sp:
         yc = sp.input(ye)
-        y = torch.zeros((T, d), dtype=dtype, device=dev)
-        for el, pc, p, keep in gathers:
-            contrib = yc[el, pc]                               # [T, d]
-            y = y + torch.where(keep[:, None], contrib * p[:, None].to(dtype),
-                                torch.zeros((), dtype=dtype, device=dev))
-        y = sp.output(y)
+        y = sp.output(_Combine.apply(yc, top_p, m.slot, m.tok, m.choice))
 
     aux = E * (me * ce).sum() * cfg.aux_loss_weight
     return y, aux

@@ -1050,6 +1050,132 @@ def test_reduced_train_step_on_the_card_matches_the_cpu(cuda, arch):
         assert float((a.detach().cpu() - b.detach()).abs().max()) <= tol, name
 
 
+# ------------------------------------------------- the MoE's dispatch
+MOE_SLOT_CASES = [(1, 32, 8, 8, "all"), (16, 32, 8, 40, "all"),
+                  (300, 4, 2, 2, "local"), (1500, 32, 1, 1, "all"),
+                  (8192, 32, 8, 2560, "all"), (8192, 32, 8, 8, "local")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,E,k,C,experts", MOE_SLOT_CASES)
+def test_moe_slot_map_kernel_matches_plain(cuda, T, E, k, C, experts):
+    """The slot map's kernels against the plain sort-based version, from
+    a top_e strided as the router's: the same slots, inverse maps and
+    counts, exactly, on crowded routings (most choices dropped at C = k)
+    and over a local expert range."""
+    from repro_torch.kernels.moe_dispatch import kernel as MK
+    g = torch.Generator(device=cuda).manual_seed(T + E)
+    e0, nl = (0, E) if experts == "all" else (E // 4, E // 2)
+    score = torch.rand(T, E, device=cuda, generator=g) + 2 * torch.linspace(
+        1, 0, E, device=cuda)
+    top_e = torch.sort(score, dim=-1, descending=True,
+                       stable=True)[1][:, :k]
+    before = MK.slot_map.launches
+    m = MK.slot_map(top_e, C, E, nl, e0)
+    assert MK.slot_map.launches - before == 1
+    for a, b in zip(m, MK.slot_map_plain(top_e, C, E, nl, e0)):
+        assert torch.equal(a, b)
+
+
+MOE_GATHER_CASES = [(8192, 8, 81920, 1024), (16, 8, 128, 1024),
+                    (37, 3, 50, 100), (37, 3, 50, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("n,k,S,d", MOE_GATHER_CASES)
+def test_moe_gathers_match_plain(cuda, n, k, S, d, dtype, offset):
+    """gather_sum, gather_rows and gather_dot against their plain
+    versions, with indices past the end (dropped choices, empty slots),
+    in both load widths (an offset of one element misaligns the rows):
+    rows in the source's type within one unit in the last place, and
+    1e-6 of the largest where the sum cancels (the sums' order differs),
+    gather_dot within 1e-5 of the largest, each bitwise equal on a
+    rerun."""
+    from repro_torch.kernels.moe_dispatch import kernel as MK
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(n + d)
+
+    def rows(r):
+        flat = torch.randn(r * d + offset, device=cuda, generator=g).to(dt)
+        return flat[offset:].view(r, d)
+    src, toks = rows(S), rows(n)
+    slot = torch.randint(0, S + 1, (n, k), device=cuda, generator=g)
+    w = torch.rand(n, k, device=cuda, generator=g)
+    tok = torch.randint(0, n + 1, (S,), device=cuda, generator=g)
+    choice = torch.randint(0, n * k + 1, (S,), device=cuda, generator=g)
+    for fn, args in ((MK.gather_sum, (src, slot, w)),
+                     (MK.gather_sum, (src, slot)),
+                     (MK.gather_rows, (toks, tok)),
+                     (MK.gather_rows, (toks, tok, w.view(-1), choice)),
+                     (MK.gather_dot, (src, slot, toks))):
+        before = fn.launches
+        got = fn(*args)
+        assert fn.launches - before == 1
+        assert torch.equal(got, fn(*args))
+        want = getattr(MK, fn.__name__ + "_plain")(*args)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        diff = (got.double() - want.double()).abs()
+        if fn is MK.gather_dot:
+            assert float(diff.max()) <= 1e-5 * float(want.abs().max())
+        else:
+            ulp = 2.0 ** -7 if dt == torch.bfloat16 else 2.0 ** -22
+            big = want.double().abs()
+            assert bool((diff <= ulp * big + 1e-6 * big.max()).all()), \
+                fn.__name__
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_layer_kernels_match_plain_on_the_card(cuda, dtype, monkeypatch):
+    """The MoE layer at granite's widths (32 experts, top 8, d 1,024),
+    1,024 tokens at capacity 1.25, crowded so that choices drop: y, aux
+    and the gradients of x and the four weights with the slot map and the
+    gathers as kernels against the same layer with their plain versions,
+    on the card (the same routing): fp32 within 1e-5, bf16 within 1e-2
+    of each tensor's largest; no host sync on the kernels' path; each
+    kernel launched."""
+    from repro_torch.kernels.moe_dispatch import kernel as MK
+    from repro_torch.models import moe as MOE
+    dt = getattr(torch, dtype)
+    mc = get_arch("granite-moe-1b-a400m").moe
+    moe = MOE.MoE(torch.Generator(device=cuda).manual_seed(0), 1024, mc)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    lean = (moe.router[:, 0] / moe.router[:, 0].norm()).detach()
+    x = torch.randn(1024, 1024, device=cuda, generator=g) + 3.0 * lean
+    r = torch.randn(1024, 1024, device=cuda, generator=g)
+
+    def run():
+        xg = x.to(dt).requires_grad_(True)
+        w = {n: getattr(moe, n).detach().clone().requires_grad_(True)
+             for n in MOE._WEIGHTS}
+        y, aux = MOE._moe_local(w, mc, xg, 32, 0)
+        ((y.float() * r).sum() + aux).backward()
+        return [y, aux, xg.grad] + [w[n].grad for n in MOE._WEIGHTS]
+
+    names = ("slot_map", "gather_sum", "gather_rows", "gather_dot")
+    before = [getattr(MK, n).launches for n in names]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(getattr(MK, n).launches > b for n, b in zip(names, before))
+    for n in names:
+        monkeypatch.setattr(MOE, n, getattr(MK, n + "_plain"))
+    want = run()
+    drops = MK.slot_map_plain(
+        MOE._top_k(torch.softmax((x.to(dt) @ moe.router.to(dt)).float(), -1),
+                   8)[1], MOE._capacity(1024, mc), 32, 32, 0).slot
+    assert bool((drops == 32 * MOE._capacity(1024, mc)).any())
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    for a, b in zip(got, want):
+        a, b = a.detach().float(), b.detach().float()
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+
+
 # ---------------------------------------------- a one-rank NCCL mesh
 @pytest.fixture
 def nccl_mesh(cuda):
