@@ -176,14 +176,17 @@ JSON line; any failure exits non-zero:
           group and ``make_dev_mesh(1, 1)`` on the card, ``train_loop``
           at full width (batch 2, seq 4,096, remat "full", bf16) for
           qwen3-1.7b (2 steps), mamba2-1.3b (1) and granite-moe-1b-a400m
-          (1, its MoE layers on the expert-parallel branch), each without
-          a mesh and then on the mesh (DTensor parameters, the batch
-          sharded by the loader): exactly 56 flash_attention_wgmma / 96
-          ssd_scan_wgmma / 48 flash_attention_wgmma launches a step (and
-          28 / 0 / 24 flash_attention_backward_wgmma, 0 / 48 / 0
-          ssd_scan_backward_wgmma, 0 / 0 / 48 slot_map, 72 gather_rows,
-          72 gather_sum and 24 gather_dot of the MoE dispatch) and
-          nothing else,
+          (1, its MoE layers on the expert-parallel branch), and
+          granite-4.0-h-small at its benchmark cell's share (10 layers,
+          9 of 72 experts held; batch 1, 1 step), each without a mesh
+          and then on the mesh (DTensor parameters, the batch sharded by
+          the loader): exactly 56 flash_attention_wgmma / 96
+          ssd_scan_wgmma / 48 flash_attention_wgmma / 2
+          flash_attention_wgmma and 18 ssd_scan_wgmma launches a step
+          (and 28 / 0 / 24 / 1 flash_attention_backward_wgmma, 0 / 48 /
+          0 / 9 ssd_scan_backward_wgmma, 0 / 0 / 48 / 20 slot_map, 72 /
+          30 gather_rows, 72 / 30 gather_sum and 24 / 10 gather_dot of
+          the MoE dispatch) and nothing else,
           losses within DIST_LOSS_RTOL and grad norms within
           DIST_GNORM_RTOL of the mesh-less steps, ms per step, peak memory
           and DTensor's host overhead per step; then the port's dry-run
@@ -194,10 +197,15 @@ JSON line; any failure exits non-zero:
           peak estimate must lie within DRYRUN_PEAK_RATIO of the peak the
           card measured for that step; per-device FLOPs, useful ratio,
           collectives and wall time (the roofline terms are the simulated
-          TPU-v5e pod's, not the card's); last the MoE dispatch's four
-          kernels at granite-moe-1b-a400m's train step and chat decode
-          step shapes against their plain versions, and timed at the
-          train shape for the ``kernels`` line (``moe_dispatch_rows``)
+          TPU-v5e pod's, not the card's); after the child,
+          granite-moe-1b-a400m's and granite-4.0-h-small's flash and
+          granite-4.0-h-small's SSD (128 heads) at their training shapes
+          against their plain versions and timed; last the MoE
+          dispatch's four kernels at granite-moe-1b-a400m's train step
+          and chat decode step shapes and at granite-4.0-h-small's train
+          step (a router over 72, 9 held) against their plain versions,
+          and timed at the train shapes for the ``kernels`` line
+          (``moe_dispatch_rows``)
   paper4  the paper's §4 experiment (examples/vos_scheduler_demo.py) on the
           port's core: six heuristics, 120 jobs each, a 70% power cap; the
           VoS must equal the JAX package's, recorded below
@@ -2108,7 +2116,8 @@ def card_vs_cpu_steps(dev) -> None:
 
 
 # the flash backward's full-width training shapes, timed in the train phase
-BWD_TIMED_ARCHS = ("qwen3-1.7b", "granite-moe-1b-a400m")
+BWD_TIMED_ARCHS = ("qwen3-1.7b", "granite-moe-1b-a400m",
+                   "granite-4.0-h-small")
 # the JAX package has no backward kernel (no TPU kernel to name): its
 # models train by XLA's autodiff of chunked_attention, whose gradient the
 # backward kernel computes, so its rows name that function
@@ -2230,6 +2239,53 @@ def time_ssd_backward(dev, gen, cfg, smi0) -> dict:
     return t
 
 
+def train_shape_kernel(dev, gen, cfg, kernel):
+    """``kernel`` (``flash_attention_wgmma`` or ``ssd_scan_wgmma``) at
+    ``cfg``'s training shape (TRAIN_FULL's batch and seq, bf16) against
+    its plain version (flash within FULL_FLASH_BF16_ROW_RTOL of each
+    row's largest, the SSD within FULL_SSD_RTOL of the largest), then
+    timed (``time_flash`` / ``time_ssd``) → (the ``kernels`` row's name,
+    source and what it replaces; the shape; max |err|; the timings)."""
+    from repro_torch.kernels.flash_attention import (attention_reference,
+                                                     flash_attention)
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_reference
+    from repro_torch.kernels.sweeps import (FULL_FLASH_BF16_ROW_RTOL,
+                                            FULL_SSD_RTOL)
+
+    B, S = TRAIN_FULL["batch"], TRAIN_FULL["seq"]
+    if kernel.startswith("flash"):
+        shp = (B, S, S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, True)
+        q, k, v = flash_inputs(dev, gen, *shp[:6], "bfloat16")
+        out = flash_attention(q, k, v, causal=True)
+        ref = attention_reference(q, k, v, causal=True)
+        diff = (out.float() - ref.float()).abs()
+        err = float(diff.max())
+        require(bool((diff.amax(-1) <= FULL_FLASH_BF16_ROW_RTOL
+                      * ref.float().abs().amax(-1)).all()),
+                f"{kernel} at {cfg.name}'s training shape: max |err| {err}")
+        del q, k, v, out, ref, diff
+        t = time_flash(dev, gen, shp, "bfloat16")
+        row = (f"flash_attention.{kernel} {cfg.name} train step",
+               "flash_attention_sm90",
+               "src/repro/kernels/flash_attention/kernel.py:87")
+    else:
+        s = cfg.ssm
+        shp = (B, S, s.n_heads(cfg.d_model), s.head_dim, s.n_groups,
+               s.d_state, s.chunk_size)
+        args = ssd_inputs(dev, gen, *shp[:6], "bfloat16")
+        out, ref = ssd_scan(*args, chunk=s.chunk_size), \
+            ssd_scan_reference(*args)
+        err = float((out.float() - ref.float()).abs().max())
+        require(err <= FULL_SSD_RTOL["bfloat16"]
+                * float(ref.float().abs().max()),
+                f"{kernel} at {cfg.name}'s training shape: max |err| {err}")
+        del args, out, ref
+        t = time_ssd(dev, gen, shp, "bfloat16", plain_reps=1)
+        row = (f"ssd_scan.{kernel} {cfg.name} train step", "ssd_scan",
+               "src/repro/kernels/ssd_scan/kernel.py:71")
+    return row, shp, err, t
+
+
 def train_path(dev, gen, smi0) -> list:
     """The LM training path on the card:
       (a) flash at head dim 16 against its plain version, bf16 on the
@@ -2243,8 +2299,9 @@ def train_path(dev, gen, smi0) -> list:
           bf16 and fp32, flash at d 16 to 128 (``backward_checks``); then
           the flash backward kernel timed at the full-width training
           shapes beside its formula and SDPA's backward, the SSD backward
-          kernel at mamba2-1.3b's beside its formula and the forward
-          kernel, each held to its formula in fp32 there first;
+          kernel at mamba2-1.3b's and granite-4.0-h-small's (128 heads)
+          beside its formula and the forward kernel, each held to its
+          formula in fp32 there first;
       (c) ``train_loop`` at full width (qwen3-1.7b, mamba2-1.3b; batch 2,
           seq 4,096, 3 steps, TrainHParams' defaults: remat "full", bf16):
           per step ms (host clock after a device sync), tokens/s, peak
@@ -2265,7 +2322,8 @@ def train_path(dev, gen, smi0) -> list:
           archs, ``schedule_run --jobs 3 --steps 2`` (its plan line equal
           to the CPU's).
     Returns the ``kernels`` rows of the path and the backward kernels'
-    timings by arch (``time_flash_backward``, ``time_ssd_backward``)."""
+    timings by (arch, backward kernel) (``time_flash_backward``,
+    ``time_ssd_backward``)."""
     import contextlib
     import io
 
@@ -2326,11 +2384,12 @@ def train_path(dev, gen, smi0) -> list:
     bwd_times = {}
     for arch in BWD_TIMED_ARCHS:
         cfg = get_arch(arch)
-        bwd_times[arch] = time_flash_backward(
+        bwd_times[(arch, BACKWARD_KERNEL[True])] = time_flash_backward(
             dev, gen, (B, S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim),
             f"{arch} train", smi0)
-    bwd_times["mamba2-1.3b"] = time_ssd_backward(
-        dev, gen, get_arch("mamba2-1.3b"), smi0)
+    for arch in ("mamba2-1.3b", HYBRID):
+        bwd_times[(arch, BACKWARD_KERNEL[False])] = time_ssd_backward(
+            dev, gen, get_arch(arch), smi0)
 
     # (c) train_loop at full width
     per_step = {}
@@ -2503,36 +2562,7 @@ def train_path(dev, gen, smi0) -> list:
     for arch in TRAIN_ARCHS:
         kernel, per, steps = per_step[arch]
         cfg = get_arch(arch)
-        if cfg.ssm is None:
-            shp = (B, S, S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, True)
-            q, k, v = flash_inputs(dev, gen, *shp[:6], "bfloat16")
-            out = flash_attention(q, k, v, causal=True)
-            ref = attention_reference(q, k, v, causal=True)
-            diff = (out.float() - ref.float()).abs()
-            err = float(diff.max())
-            require(bool((diff.amax(-1) <= FULL_FLASH_BF16_ROW_RTOL
-                          * ref.float().abs().amax(-1)).all()),
-                    f"{kernel} at the training shape: max |err| {err}")
-            del q, k, v, out, ref, diff
-            t = time_flash(dev, gen, shp, "bfloat16")
-            row = (f"flash_attention.{kernel} {arch} train step",
-                   "flash_attention_sm90",
-                   "src/repro/kernels/flash_attention/kernel.py:87")
-        else:
-            s = cfg.ssm
-            shp = (B, S, s.n_heads(cfg.d_model), s.head_dim, s.n_groups,
-                   s.d_state, s.chunk_size)
-            args = ssd_inputs(dev, gen, *shp[:6], "bfloat16")
-            out, ref = ssd_scan(*args, chunk=s.chunk_size), \
-                ssd_scan_reference(*args)
-            err = float((out.float() - ref.float()).abs().max())
-            require(err <= FULL_SSD_RTOL["bfloat16"]
-                    * float(ref.float().abs().max()),
-                    f"{kernel} at the training shape: max |err| {err}")
-            del args, out, ref
-            t = time_ssd(dev, gen, shp, "bfloat16", plain_reps=1)
-            row = (f"ssd_scan.{kernel} {arch} train step", "ssd_scan",
-                   "src/repro/kernels/ssd_scan/kernel.py:71")
+        row, shp, err, t = train_shape_kernel(dev, gen, cfg, kernel)
         emit("times", case=f"{kernel} {arch} train", shape=list(shp),
              dtype="bfloat16", launches=per * len(steps), nvidia_smi=smi0,
              **t)
@@ -2540,7 +2570,7 @@ def train_path(dev, gen, smi0) -> list:
         bk = BACKWARD_KERNEL[cfg.ssm is None]
         mod, src, replaces = BACKWARD_ROW[bk]
         n_bwd = sum(r["launches"][bk] for r in steps)
-        tb = bwd_times[arch]
+        tb = bwd_times[(arch, bk)]
         rows.append((f"{mod}.{bk} {arch} train step", src, replaces, n_bwd,
                      tb["max_abs_err"], tb))
     return rows, bwd_times
@@ -2552,17 +2582,29 @@ def train_path(dev, gen, smi0) -> list:
 # "full", bf16) without a mesh and then on make_dev_mesh(1, 1), in one
 # child process; granite-moe-1b-a400m's layers take the MoE's
 # expert-parallel branch on the mesh
-DIST_ARCHS = (("qwen3-1.7b", 2), ("mamba2-1.3b", 1),
-              ("granite-moe-1b-a400m", 1))
+# (arch, steps, batch); granite-4.0-h-small at its benchmark cell's share
+# (``hybrid_share``) and batch 1, so that the mesh-less and the mesh run,
+# each holding 2.4 B parameters with their gradients and AdamW's moments,
+# stay well inside the card's memory one after the other
+DIST_ARCHS = (("qwen3-1.7b", 2, 2), ("mamba2-1.3b", 1, 2),
+              ("granite-moe-1b-a400m", 1, 2), ("granite-4.0-h-small", 1, 1))
+# granite-4.0-h-small as its benchmark cell runs it: one chip's share of an
+# expert-parallel stage, one period of its layer pattern (10 of 40 layers)
+# holding 9 of each layer's 72 routed experts
+HYBRID = "granite-4.0-h-small"
+HYBRID_SHARE = {"n_layers": 10, "held": 9}
 # the MoE dispatch's kernel launches a MoE layer a step, remat "full": the
 # slot map, the dispatch's row gather and the combine's weighted sum in the
 # forward and its recompute; the combine's weighted row gather and dot and
 # the dispatch's sum in the backward
 MOE_LAUNCHES_PER_LAYER = {"slot_map": 2, "gather_rows": 3, "gather_sum": 3,
                           "gather_dot": 1}
-# granite-moe-1b-a400m's MoE at the benchmark's shapes: a train step's
-# tokens (batch 2 × 4,096) and a chat decode step's (16 chats)
-MOE_TOKENS = {"train": 8192, "decode": 16}
+# the MoE at the benchmark's shapes, (arch, use, tokens): granite-moe-1b-
+# a400m's train step (batch 2 × 4,096) and chat decode step (16 chats);
+# granite-4.0-h-small's train step at its share (``hybrid_share``)
+MOE_CASES = (("granite-moe-1b-a400m", "train", 8192),
+             ("granite-moe-1b-a400m", "decode", 16),
+             ("granite-4.0-h-small", "train", 8192))
 # on one rank DTensor dispatches the same local ops in the same order, so
 # the mesh's steps repeat the mesh-less ones: the loss, the loss with the
 # MoE's aux term (loss_total) and the grad norm within 1e-6 relative (a few
@@ -2584,6 +2626,23 @@ DRYRUN_CELLS = (("qwen3-1.7b", "train_4k", "16x16"),
 # of the card's peak by a fifth and should not pass it by more than a
 # quarter
 DRYRUN_PEAK_RATIO = (0.8, 1.25)
+
+
+def hybrid_share():
+    """granite-4.0-h-small's arch at HYBRID_SHARE: the layers and the held
+    experts of one chip (the router keeps all 72)."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch(HYBRID)
+    return dataclasses.replace(
+        cfg, n_layers=HYBRID_SHARE["n_layers"],
+        moe=dataclasses.replace(cfg.moe, n_experts=HYBRID_SHARE["held"]))
+
+
+def arch_as_run(arch: str):
+    """The arch the dist phase and the MoE rows run: granite-4.0-h-small
+    at its share, any other at full width."""
+    from repro_torch.configs import get_arch
+    return hybrid_share() if arch == HYBRID else get_arch(arch)
 
 
 def dryrun_cell(spec: str) -> None:
@@ -2635,10 +2694,12 @@ def dist_child() -> None:
     """(Run as ``chip_smoke.py --dist``, by ``dist_path``.) The
     distribution path on the card and the dry-run: on a one-rank NCCL
     process group and ``make_dev_mesh(1, 1)``, runs each arch of
-    DIST_ARCHS through
+    DIST_ARCHS (``arch_as_run``) through
     ``train_loop`` without a mesh and on the mesh (the counters set to 0
     before each step's record is taken): each step exactly 2 launches of
-    the path's kernel per path layer and nothing else, losses and grad
+    each path's kernel per path layer (flash per attention layer, the SSD
+    per Mamba-2 layer), 1 of its backward kernel, the MoE's kernels
+    MOE_LAUNCHES_PER_LAYER per MoE layer and nothing else, losses and grad
     norms within DIST_LOSS_RTOL / DIST_GNORM_RTOL of the mesh-less steps,
     an MoE arch's layers through the expert-parallel branch on the mesh
     (its entries counted) and never without it, ms per step, peak memory,
@@ -2651,7 +2712,6 @@ def dist_child() -> None:
 
     import torch
     import torch.distributed as dist
-    from repro_torch.configs import get_arch
     from repro_torch.launch.mesh import init_local_world, make_dev_mesh
     from repro_torch.launch.train import train_loop
     from repro_torch.models import moe as MOE
@@ -2683,16 +2743,19 @@ def dist_child() -> None:
              mesh_device_type=mesh.device_type)
         require(mesh.device_type == "cuda" and dist.get_backend() == "nccl",
                 f"mesh on {mesh.device_type}, backend {dist.get_backend()}")
-        for arch, steps in DIST_ARCHS:
-            cfg = get_arch(arch)
-            attn = cfg.ssm is None
-            n_path = sum(k.startswith("attn" if attn else "ssm")
-                         for k in cfg.layer_kinds())
-            kernel = "flash_attention_wgmma" if attn else "ssd_scan_wgmma"
+        for arch, steps, batch in DIST_ARCHS:
+            cfg = arch_as_run(arch)
             want = {k: 0 for k in zeroed_counters()}
-            want[kernel] = want["flash_attention" if attn else "ssd_scan"] \
-                = 2 * n_path
-            want[BACKWARD_KERNEL[attn]] = n_path
+            paths = []
+            for attn, op, kernel in ((True, "flash_attention",
+                                      "flash_attention_wgmma"),
+                                     (False, "ssd_scan", "ssd_scan_wgmma")):
+                n_path = sum(k.startswith("attn" if attn else "ssm")
+                             for k in cfg.layer_kinds())
+                if n_path:
+                    want[kernel] = want[op] = 2 * n_path
+                    want[BACKWARD_KERNEL[attn]] = n_path
+                    paths.append((kernel, BACKWARD_KERNEL[attn]))
             n_moe = sum(k.endswith("moe") for k in cfg.layer_kinds())
             want.update({k: n * n_moe
                          for k, n in MOE_LAUNCHES_PER_LAYER.items()})
@@ -2719,9 +2782,9 @@ def dist_child() -> None:
                 printed = io.StringIO()
                 with contextlib.redirect_stdout(printed):
                     state, _ = train_loop(
-                        arch, full=True, seed=SEED, device=dev,
+                        cfg, seed=SEED, device=dev,
                         hp=TrainHParams(), on_step=on_step, mesh=m,
-                        steps=steps, batch=TRAIN_FULL["batch"],
+                        steps=steps, batch=batch,
                         seq=TRAIN_FULL["seq"], log_every=10**9)
                 runs[name] = {"steps": recs, "peak_memory":
                               torch.cuda.max_memory_allocated(dev)}
@@ -2755,7 +2818,9 @@ def dist_child() -> None:
             overhead = [b["ms"] - a["ms"] for a, b in
                         zip(runs["meshless"]["steps"], runs["mesh"]["steps"])]
             emit("dist", case="train_loop_1x1_mesh", arch=arch,
-                 **TRAIN_FULL | {"steps": steps}, remat="full",
+                 n_layers=cfg.n_layers,
+                 **TRAIN_FULL | {"steps": steps, "batch": batch},
+                 remat="full",
                  compute_dtype="bfloat16",
                  launches_per_step={k: n for k, n in want.items()
                                     if n and k not in ("flash_attention",
@@ -2770,12 +2835,11 @@ def dist_child() -> None:
                      for r in runs["mesh"]["steps"]],
                  nvidia_smi=smi0)
             summary["archs"][arch] = {
-                "kernel": kernel, "launches": sum(
+                "paths": [{"kernel": kernel, "launches": sum(
                     r["launches"][kernel] for r in runs["mesh"]["steps"]),
-                "backward_kernel": BACKWARD_KERNEL[attn],
-                "backward_launches": sum(
-                    r["launches"][BACKWARD_KERNEL[attn]]
-                    for r in runs["mesh"]["steps"]),
+                    "backward_kernel": bk, "backward_launches": sum(
+                        r["launches"][bk] for r in runs["mesh"]["steps"])}
+                    for kernel, bk in paths],
                 "moe_launches": {k: sum(r["launches"][k]
                                         for r in runs["meshless"]["steps"])
                                  for k in MOE_LAUNCHES_PER_LAYER},
@@ -2815,54 +2879,42 @@ def dist_child() -> None:
 def dist_kernel_rows(dev, gen, smi0, summary, train_rows,
                      bwd_times) -> list:
     """The ``kernels`` rows of the dist phase: its launches on the mesh
-    path; qwen3-1.7b's flash and mamba2-1.3b's SSD at the training shape
-    keep the train phase's measurements of this run (the same kernels at
-    the same shapes), granite-moe-1b-a400m's flash is checked against its
-    plain version and timed at its own; the flash backward kernel's rows
-    take the train phase's timings at each arch's shape (``bwd_times``)."""
+    path, a row for each path's kernel and backward kernel of each arch;
+    qwen3-1.7b's flash and mamba2-1.3b's SSD at the training shape keep
+    the train phase's measurements of this run (the same kernels at the
+    same shapes), any other arch's kernel is checked against its plain
+    version and timed at its own (``train_shape_kernel``:
+    granite-moe-1b-a400m's flash at 16 / 8 heads of 64,
+    granite-4.0-h-small's flash at 32 / 8 of 128 and its SSD at 128
+    heads); the backward kernels' rows take the train phase's timings at
+    each arch's shape (``bwd_times``)."""
     from repro_torch.configs import get_arch
-    from repro_torch.kernels.flash_attention import (attention_reference,
-                                                     flash_attention)
-    from repro_torch.kernels.sweeps import FULL_FLASH_BF16_ROW_RTOL
 
     rows = []
     for arch, rec in summary["archs"].items():
-        kernel = rec["kernel"]
-        prefix = ("flash_attention." if kernel.startswith("flash")
-                  else "ssd_scan.") + f"{kernel} {arch} train step"
-        same = [r for r in train_rows if r[0] == prefix]
-        if same:
-            _, src, replaces, _, err, t = same[0]
-        else:
-            cfg = get_arch(arch)
-            B, S = TRAIN_FULL["batch"], TRAIN_FULL["seq"]
-            shp = (B, S, S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, True)
-            q, k, v = flash_inputs(dev, gen, *shp[:6], "bfloat16")
-            out = flash_attention(q, k, v, causal=True)
-            ref = attention_reference(q, k, v, causal=True)
-            diff = (out.float() - ref.float()).abs()
-            err = float(diff.max())
-            require(bool((diff.amax(-1) <= FULL_FLASH_BF16_ROW_RTOL
-                          * ref.float().abs().amax(-1)).all()),
-                    f"{kernel} at {arch}'s training shape: max |err| {err}")
-            del q, k, v, out, ref, diff
-            t = time_flash(dev, gen, shp, "bfloat16")
-            emit("times", case=f"{kernel} {arch} train", shape=list(shp),
-                 dtype="bfloat16", launches=rec["launches"],
-                 nvidia_smi=smi0, **t)
-            src = "flash_attention_sm90"
-            replaces = "src/repro/kernels/flash_attention/kernel.py:87"
-        rows.append((f"{prefix} on a 1x1 NCCL mesh", src, replaces,
-                     rec["launches"], err, t))
-        bk = rec["backward_kernel"]
-        mod, src, replaces = BACKWARD_ROW[bk]
-        tb = bwd_times[arch]
-        rows.append((f"{mod}.{bk} {arch} train step on a 1x1 NCCL mesh",
-                     src, replaces, rec["backward_launches"],
-                     tb["max_abs_err"], tb))
-    moe_launches = {k: sum(rec["moe_launches"][k]
-                           for rec in summary["archs"].values())
-                    for k in MOE_LAUNCHES_PER_LAYER}
+        for path in rec["paths"]:
+            kernel = path["kernel"]
+            prefix = ("flash_attention." if kernel.startswith("flash")
+                      else "ssd_scan.") + f"{kernel} {arch} train step"
+            same = [r for r in train_rows if r[0] == prefix]
+            if same:
+                _, src, replaces, _, err, t = same[0]
+            else:
+                (_, src, replaces), shp, err, t = train_shape_kernel(
+                    dev, gen, get_arch(arch), kernel)
+                emit("times", case=f"{kernel} {arch} train",
+                     shape=list(shp), dtype="bfloat16",
+                     launches=path["launches"], nvidia_smi=smi0, **t)
+            rows.append((f"{prefix} on a 1x1 NCCL mesh", src, replaces,
+                         path["launches"], err, t))
+            bk = path["backward_kernel"]
+            mod, src, replaces = BACKWARD_ROW[bk]
+            tb = bwd_times[(arch, bk)]
+            rows.append((f"{mod}.{bk} {arch} train step on a 1x1 NCCL mesh",
+                         src, replaces, path["backward_launches"],
+                         tb["max_abs_err"], tb))
+    moe_launches = {arch: rec["moe_launches"]
+                    for arch, rec in summary["archs"].items()}
     return rows + moe_dispatch_rows(dev, gen, smi0, moe_launches)
 
 
@@ -2875,47 +2927,53 @@ def _rows_read(idx, n_rows, row_bytes) -> int:
 
 
 def moe_dispatch_rows(dev, gen, smi0, launches) -> list:
-    """The MoE dispatch's kernels (``kernels/moe_dispatch``) at
-    granite-moe-1b-a400m's shapes on the main path (MOE_TOKENS: a train
-    step's 8,192 tokens and a chat decode step's 16; 32 experts, top 8,
-    d 1,024, its capacity, bf16), on a routing that crowds the first
-    experts so that choices drop: each against its plain version, the
-    slot map exactly, the gathers in bf16 within one unit in the last
-    place of the plain row (and 1e-6 of the largest, where a sum of k
-    products cancels and the sums' order differs), ``gather_dot`` in fp32
-    within 1e-5 of the largest; a rerun bitwise equal. At the train
-    shape each kernel and its plain version are timed by CUDA events
-    beside the bound (bytes: the distinct source rows read once, each
-    output once), and every use of a train step gets a ``times`` line.
-    Returns the ``kernels`` rows, one a kernel at its forward use, with
-    ``launches`` the dist phase's granite steps' count."""
+    """The MoE dispatch's kernels (``kernels/moe_dispatch``) at the
+    shapes of MOE_CASES (``arch_as_run``; bf16): granite-moe-1b-a400m's
+    32 experts, top 8, d 1,024, all held; granite-4.0-h-small's router
+    over 72, top 10, d 4,096, with the first 9 held, its buffer [9·C,
+    4,096]. The routing crowds the first experts so that choices drop.
+    Each kernel against its plain version: the slot map exactly, the
+    gathers in bf16 within one unit in the last place of the plain row
+    (and 1e-6 of the largest, where a sum of k products cancels and the
+    sums' order differs), ``gather_dot`` in fp32 within 1e-5 of the
+    largest; a rerun bitwise equal. At a train shape each kernel and its
+    plain version are timed by CUDA events beside the bound (bytes: the
+    distinct source rows read once, each output once), and every use of
+    a train step gets a ``times`` line. Returns the ``kernels`` rows, one
+    a kernel at its forward use for each arch's train step, with
+    ``launches`` the dist phase's steps' count of that arch."""
     import torch
-    from repro_torch.configs import get_arch
     from repro_torch.kernels.moe_dispatch import kernel as MK
     from repro_torch.models.moe import _capacity
 
-    mc = get_arch("granite-moe-1b-a400m").moe
-    E, k, d = mc.n_experts, mc.top_k, get_arch("granite-moe-1b-a400m").d_model
-    bf16, f32 = torch.bfloat16, torch.float32
-    rows, errs = [], {}
-    for where, T in MOE_TOKENS.items():
-        C = _capacity(T, mc)
+    bf16 = torch.bfloat16
+    out_rows = []
+    for arch, where, T in MOE_CASES:
+        cfg = arch_as_run(arch)
+        E, held, k, d = (cfg.n_routed, cfg.moe.n_experts, cfg.moe.top_k,
+                         cfg.d_model)
+        C = _capacity(T, dataclasses.replace(cfg.moe, n_experts=E))
+        rows, errs = [], {}
         # a lean towards the first experts drops about 30% of a train
-        # step's choices, as the benchmark's router does
+        # step's choices at granite-moe-1b-a400m, as the benchmark's
+        # router does
         score = torch.randn(T, E, device=dev, generator=gen) \
             + torch.linspace(3.0, 0, E, device=dev)
         top_p, top_e = torch.topk(torch.softmax(score, -1), k)
         top_p = (top_p / top_p.sum(-1, keepdim=True)).contiguous()
-        m = MK.slot_map(top_e, C, E, E, 0)
-        again = MK.slot_map(top_e, C, E, E, 0)
-        plain = MK.slot_map_plain(top_e, C, E, E, 0)
+        m = MK.slot_map(top_e, C, E, held, 0)
+        again = MK.slot_map(top_e, C, E, held, 0)
+        plain = MK.slot_map_plain(top_e, C, E, held, 0)
         for f in m._fields:
             require(torch.equal(getattr(m, f), getattr(plain, f))
                     and torch.equal(getattr(m, f), getattr(again, f)),
-                    f"slot_map {where} [{T}, {k}] of {E}, C {C}: {f} "
-                    "differs from the plain version or a rerun")
-        dropped = float((m.slot == E * C).float().mean())
-        S = E * C
+                    f"slot_map {arch} {where} [{T}, {k}] of {E}, {held} "
+                    f"held, C {C}: {f} differs from the plain version or a "
+                    "rerun")
+        S = held * C
+        mine = top_e < held
+        # of the held experts' assignments, those past the capacity
+        dropped = float(((m.slot == S) & mine).sum() / mine.sum())
 
         def rand(*shape):
             return torch.randn(*shape, device=dev, generator=gen).to(bf16)
@@ -2936,11 +2994,13 @@ def moe_dispatch_rows(dev, gen, smi0, launches) -> list:
                 ("dispatch backward", "gather_sum", (dbuf, m.slot),
                  _rows_read(m.slot, S, 2 * d) + T * (2 * d + 8 * k),
                  (m.slot < S).sum().item() * d)]
+        shape = dict(tokens=T, experts=E, held=held, top_k=k, capacity=C,
+                     d=d, dropped_share=dropped)
         for use, name, args, nbytes, flops in uses:
             fn, ref = getattr(MK, name), getattr(MK, name + "_plain")
             got, want = fn(*args), ref(*args)
-            require(torch.equal(got, fn(*args)), f"{name} {where} {use}: "
-                    "a rerun differs")
+            require(torch.equal(got, fn(*args)), f"{name} {arch} {where} "
+                    f"{use}: a rerun differs")
             diff = (got.double() - want.double()).abs()
             big = want.double().abs()
             if name == "gather_dot":
@@ -2949,7 +3009,8 @@ def moe_dispatch_rows(dev, gen, smi0, launches) -> list:
                 ok = bool((diff <= 2.0 ** -7 * big + 1e-6 * big.max()).all())
             err = float(diff.max())
             require(got.dtype == want.dtype and ok,
-                    f"{name} {where} {use}: max |kernel - plain| {err}")
+                    f"{name} {arch} {where} {use}: max |kernel - plain| "
+                    f"{err}")
             errs[name] = max(errs.get(name, 0.0), err)
             if where != "train":
                 continue
@@ -2957,31 +3018,29 @@ def moe_dispatch_rows(dev, gen, smi0, launches) -> list:
                  "plain_ms": cuda_ms(lambda: ref(*args), 5, 1),
                  "library_ms": None, **bound(nbytes, flops, "float32"),
                  "bytes": nbytes, "flops": flops}
-            emit("times", case=f"moe_dispatch.{name} granite-moe-1b-a400m "
-                 f"{where} {use}", tokens=T, experts=E, top_k=k,
-                 capacity=C, d=d, dropped_share=dropped, max_abs_err=err,
-                 nvidia_smi=smi0, **t)
+            emit("times", case=f"moe_dispatch.{name} {arch} {where} {use}",
+                 **shape, max_abs_err=err, nvidia_smi=smi0, **t)
             if name not in {r[0] for r in rows}:
                 rows.append((name, t))
-        emit("kernel", case=f"moe_dispatch granite-moe-1b-a400m {where}",
-             tokens=T, experts=E, top_k=k, capacity=C, d=d,
-             dropped_share=dropped, max_abs_err=errs)
-        if where == "train":
-            nbytes = top_e.numel() * 8 + sum(
-                t.numel() * 8 for t in m)
-            t = {**batches(lambda: MK.slot_map(top_e, C, E, E, 0), "ms"),
-                 "plain_ms": cuda_ms(lambda: MK.slot_map_plain(
-                     top_e, C, E, E, 0), 5, 1),
-                 "library_ms": None, **bound(nbytes, 0, "float32"),
-                 "bytes": nbytes}
-            emit("times", case="moe_dispatch.slot_map granite-moe-1b-a400m "
-                 "train", tokens=T, experts=E, top_k=k, capacity=C,
-                 dropped_share=dropped, nvidia_smi=smi0, **t)
-            rows.insert(0, ("slot_map", t))
-    errs["slot_map"] = 0.0
-    return [(f"moe_dispatch.{name} granite-moe-1b-a400m train step",
-             "moe_dispatch", None, launches[name], errs[name], t)
-            for name, t in rows]
+        emit("kernel", case=f"moe_dispatch {arch} {where}", **shape,
+             max_abs_err=errs)
+        del x, ye, dy, dbuf, uses
+        if where != "train":
+            continue
+        nbytes = top_e.numel() * 8 + sum(t.numel() * 8 for t in m)
+        t = {**batches(lambda: MK.slot_map(top_e, C, E, held, 0), "ms"),
+             "plain_ms": cuda_ms(lambda: MK.slot_map_plain(
+                 top_e, C, E, held, 0), 5, 1),
+             "library_ms": None, **bound(nbytes, 0, "float32"),
+             "bytes": nbytes}
+        emit("times", case=f"moe_dispatch.slot_map {arch} train", **shape,
+             nvidia_smi=smi0, **t)
+        rows.insert(0, ("slot_map", t))
+        errs["slot_map"] = 0.0
+        out_rows += [(f"moe_dispatch.{name} {arch} train step",
+                      "moe_dispatch", None, launches[arch][name], errs[name],
+                      t) for name, t in rows]
+    return out_rows
 
 
 def dist_path() -> dict:

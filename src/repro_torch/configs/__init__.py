@@ -84,10 +84,22 @@ class ArchConfig:
     enc_dec: Optional[EncDecConfig] = None
     frontend: Optional[str] = None       # None | audio_stub | patch_stub
     n_prefix_tokens: int = 0             # stub frontend prefix length
-    positional: str = "rope"             # rope | sinusoidal
+    positional: str = "rope"             # rope | sinusoidal | nope
     grad_accum: int = 4                  # microbatches per train step (sized
                                          # so remat residuals fit 16GiB HBM)
     source: str = ""
+    routed_experts: int = 0              # the router's width where each MoE
+                                         # layer holds only moe.n_experts of
+                                         # them (0: it holds all it routes to)
+    shared_expert_ff: int = 0            # a SwiGLU expert of this width that
+                                         # every token passes through (0: none)
+    embedding_multiplier: float = 1.0    # muP: the embedded tokens × this
+    residual_multiplier: float = 1.0     # muP: each mixer's and feed-forward
+                                         # part's output × this before its
+                                         # residual add
+    attention_multiplier: float = 0.0    # muP: attention's softmax scale
+                                         # (0: 1/sqrt(head_dim))
+    ssm_conv_bias: bool = False          # a bias in the Mamba-2 convolution
 
     # ---- derived -----------------------------------------------------------
     @property
@@ -98,6 +110,11 @@ class ArchConfig:
     def padded_vocab(self) -> int:
         m = VOCAB_PAD_MULTIPLE
         return ((self.vocab_size + m - 1) // m) * m
+
+    @property
+    def n_routed(self) -> int:
+        """The experts each MoE layer routes over, held here or not."""
+        return self.routed_experts or self.moe.n_experts
 
     @property
     def attention_free(self) -> bool:
@@ -152,11 +169,20 @@ class ArchConfig:
             din, G, S, Hs = s.d_inner(D), s.n_groups, s.d_state, s.n_heads(D)
             in_proj = D * (2 * din + 2 * G * S + Hs)
             conv = s.d_conv * (din + 2 * G * S)
+            if self.ssm_conv_bias:
+                conv += din + 2 * G * S
             ssm_p = in_proj + conv + 3 * Hs + din + din * D  # +A,D,dt_bias,norm,out
         moe_p = 0.0
         if self.moe is not None:
             m = self.moe
-            moe_p = D * m.n_experts + m.n_experts * 3 * D * m.d_ff_expert
+            shared = 3 * D * self.shared_expert_ff
+            moe_p = (D * self.n_routed + m.n_experts * 3 * D * m.d_ff_expert
+                     + shared)
+            # a token's experts: k of those routed, of which the held share
+            # is computed here
+            routed_a = m.top_k * 3 * D * m.d_ff_expert
+            if self.n_routed != m.n_experts:
+                routed_a = routed_a * m.n_experts / self.n_routed
         total = 0.0
         active = 0.0
         for kind in self.layer_kinds():
@@ -165,7 +191,7 @@ class ArchConfig:
             if ff == "moe":
                 m = self.moe
                 ffp = moe_p
-                ffa = D * m.n_experts + m.top_k * 3 * D * m.d_ff_expert
+                ffa = D * self.n_routed + routed_a + shared
             elif ff == "mlp":
                 ffp = ffa = mlp
             else:
@@ -246,7 +272,7 @@ def supports_shape(arch: ArchConfig, shape: ShapeSpec) -> Tuple[bool, str]:
 _ARCH_MODULES = [
     "smollm_135m", "qwen3_1p7b", "yi_6b", "qwen3_14b", "olmoe_1b_7b",
     "granite_moe_1b_a400m", "jamba_v0_1_52b", "whisper_medium",
-    "internvl2_76b", "mamba2_1p3b",
+    "internvl2_76b", "mamba2_1p3b", "granite_4_0_h_small",
 ]
 
 _REGISTRY: Dict[str, ArchConfig] = {}

@@ -17,7 +17,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import time
-from typing import Callable, Optional
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
@@ -26,7 +26,7 @@ import torch.distributed as dist
 from repro_torch import sharding as shd
 from repro_torch.checkpoint import (CheckpointManager, FailureInjector,
                                     run_with_restarts)
-from repro_torch.configs import get_arch
+from repro_torch.configs import ArchConfig, get_arch
 from repro_torch.data import ShardedLoader
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.launch.mesh import init_local_world, make_dev_mesh
@@ -35,14 +35,17 @@ from repro_torch.runtime.straggler import StragglerMonitor
 from repro_torch.train import TrainHParams, init_train_state, make_train_step
 
 
-def train_loop(arch: str, *, steps: int = 100, batch: int = 8,
+def train_loop(arch: Union[str, ArchConfig], *, steps: int = 100,
+               batch: int = 8,
                seq: int = 128, full: bool = False,
                ckpt_dir: Optional[str] = None, save_every: int = 50,
                p_fail: float = 0.0, seed: int = 0,
                hp: Optional[TrainHParams] = None, log_every: int = 10,
                device: DeviceLike = None, mesh=None,
                on_step: Optional[Callable[[int, dict], None]] = None):
-    """Train ``arch`` for ``steps`` steps → (state, losses). Without
+    """Train ``arch`` for ``steps`` steps → (state, losses). ``arch`` is a
+    registered name (its ``reduced()`` config, or with ``full`` the
+    assigned one) or an ``ArchConfig``, trained as it is. Without
     ``hp`` the JAX package's defaults for this loop (peak lr 1e-3, 20
     warm-up steps, no remat). Each step's time is the host clock around
     the step, read after the loss comes back to the host (a device sync).
@@ -51,7 +54,10 @@ def train_loop(arch: str, *, steps: int = 100, batch: int = 8,
     ``device``'s type, whose ranks all run this loop with the same
     arguments."""
     dev = resolve_device(device)
-    cfg = get_arch(arch) if full else get_arch(arch).reduced()
+    if isinstance(arch, ArchConfig):
+        cfg = arch
+    else:
+        cfg = get_arch(arch) if full else get_arch(arch).reduced()
     hp = hp or TrainHParams(peak_lr=1e-3, warmup_steps=20, total_steps=steps,
                             grad_accum=1, remat="none")
     loader = ShardedLoader(cfg, seq, batch, mesh=mesh, seed=seed, device=dev)

@@ -148,8 +148,10 @@ class Attention(nn.Module):
         return rmsnorm_nc(q, self.q_norm) if self.qk_norm else q
 
     def qkv(self, x: torch.Tensor, positions: torch.Tensor, theta: float,
-            use_rope: bool) -> Tuple[torch.Tensor, torch.Tensor,
-                                     torch.Tensor]:
+            use_rope: bool, q_scale: float = 1.0
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """q, k, v at ``positions``; q times ``q_scale``, which moves the
+        attention's 1/sqrt(head_dim) to another softmax scale."""
         dtype = x.dtype
         q = torch.einsum("bsd,dhk->bshk", x, weight(self.wq, dtype))
         k = torch.einsum("bsd,dhk->bshk", x, weight(self.wk, dtype))
@@ -160,6 +162,8 @@ class Attention(nn.Module):
         if use_rope:
             q = apply_rope(q, positions, theta)
             k = apply_rope(k, positions, theta)
+        if q_scale != 1.0:
+            q = q * q_scale
         return q, k, v
 
     def out(self, o: torch.Tensor) -> torch.Tensor:
@@ -192,27 +196,29 @@ def attention_fwd(attn: Attention, x: torch.Tensor, *, theta: float,
                   causal: bool = True, use_rope: bool = True,
                   kv_override: Optional[Tuple[torch.Tensor,
                                               torch.Tensor]] = None,
-                  q_chunk: int = DEFAULT_Q_CHUNK) -> torch.Tensor:
+                  q_chunk: int = DEFAULT_Q_CHUNK,
+                  q_scale: float = 1.0) -> torch.Tensor:
     """Full-sequence attention (forward / encoder / cross) at positions
     0..S-1. With ``kv_override`` the keys and values are given
-    (cross-attention) and only q is projected."""
+    (cross-attention) and only q is projected. ``q_scale`` as in
+    ``Attention.qkv``."""
     if kv_override is not None:
         q = attn.q(x)
         k, v = kv_override
     else:
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        q, k, v = attn.qkv(x, positions, theta, use_rope)
+        q, k, v = attn.qkv(x, positions, theta, use_rope, q_scale)
     return attn.out(attend(q, k, v, causal))
 
 
 def attention_prefill(attn: Attention, x: torch.Tensor, *, theta: float,
                       use_rope: bool, cache_len: int,
-                      q_chunk: int = DEFAULT_Q_CHUNK):
+                      q_chunk: int = DEFAULT_Q_CHUNK, q_scale: float = 1.0):
     """Like ``attention_fwd`` (causal), and also returns k/v written into
     zeroed caches of ``cache_len`` positions."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :]
-    q, k, v = attn.qkv(x, positions, theta, use_rope)
+    q, k, v = attn.qkv(x, positions, theta, use_rope, q_scale)
     out = attn.out(attend(q, k, v, True))
     k_c = k.new_zeros((B, cache_len) + k.shape[2:])
     v_c = v.new_zeros((B, cache_len) + v.shape[2:])
@@ -239,7 +245,8 @@ def _decode_values(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def attention_decode(attn: Attention, x: torch.Tensor, cache_kv, pos: int,
-                     *, theta: float, use_rope: bool = True):
+                     *, theta: float, use_rope: bool = True,
+                     q_scale: float = 1.0):
     """Single-token decode. x: [B, 1, D]; cache k/v: [B, Smax, KV, dh];
     pos: the write index (tokens 0..pos-1 are valid). Writes k/v at pos
     into the cache tensors in place and returns them."""
@@ -247,7 +254,7 @@ def attention_decode(attn: Attention, x: torch.Tensor, cache_kv, pos: int,
     k_cache, v_cache = cache_kv
     Smax = k_cache.shape[1]
     positions = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
-    q, k, v = attn.qkv(x, positions, theta, use_rope)
+    q, k, v = attn.qkv(x, positions, theta, use_rope, q_scale)
     k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
     v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
     scores = _decode_scores(q, k_cache).float()

@@ -25,6 +25,7 @@ gradients are the ops' own formulas in torch ops.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -62,13 +63,14 @@ class Block(nn.Module):
             self.attn = L.Attention(g, cfg.d_model, cfg.n_heads,
                                     cfg.n_kv_heads, cfg.head_dim, cfg.qk_norm)
         else:
-            self.ssm = SSM.SSM(g, cfg.d_model, cfg.ssm)
+            self.ssm = SSM.SSM(g, cfg.d_model, cfg.ssm, cfg.ssm_conv_bias)
         if ff in ("mlp", "moe"):
             self.ln2 = L.RMSNorm(cfg.d_model, dev)
         if ff == "mlp":
             self.mlp = L.MLP(g, cfg.d_model, cfg.d_ff)
         elif ff == "moe":
-            self.moe = MOE.MoE(g, cfg.d_model, cfg.moe)
+            self.moe = MOE.MoE(g, cfg.d_model, cfg.moe, cfg.routed_experts,
+                               cfg.shared_expert_ff)
 
 
 class DecXBlock(nn.Module):
@@ -128,11 +130,12 @@ def _block_axes(cfg: ArchConfig, kind: str) -> Dict[str, dict]:
     if mixer == "attn":
         p["attn"] = L.attention_axes(cfg.qk_norm)
     else:
-        p["ssm"] = SSM.ssm_axes()
+        p["ssm"] = SSM.ssm_axes(cfg.ssm_conv_bias)
     if ff in ("mlp", "moe"):
         p["ln2"] = L.rmsnorm_axes()
         p["mlp" if ff == "mlp" else "moe"] = (
-            L.mlp_axes() if ff == "mlp" else MOE.moe_axes())
+            L.mlp_axes() if ff == "mlp"
+            else MOE.moe_axes(shared=cfg.shared_expert_ff > 0))
     return p
 
 
@@ -188,9 +191,23 @@ def init_params(cfg: ArchConfig, generator: torch.Generator) -> LM:
 # ---------------------------------------------------------------------------
 # Embedding front
 # ---------------------------------------------------------------------------
+def _scaled(t: torch.Tensor, m: float) -> torch.Tensor:
+    """t times a muP multiplier ``m`` (``ArchConfig``); t itself at 1."""
+    return t if m == 1.0 else t * m
+
+
+def _attn_kw(cfg: ArchConfig) -> dict:
+    """The positional encoding and the factor on q that gives the
+    attention ``cfg.attention_multiplier`` as its softmax scale."""
+    m = cfg.attention_multiplier
+    return dict(theta=cfg.rope_theta, use_rope=cfg.positional == "rope",
+                q_scale=m * math.sqrt(cfg.head_dim) if m else 1.0)
+
+
 def _embed_inputs(cfg: ArchConfig, model: LM, batch: Batch,
                   dtype) -> torch.Tensor:
-    h = L.embed_tokens(model.embed, batch["tokens"], dtype)
+    h = _scaled(L.embed_tokens(model.embed, batch["tokens"], dtype),
+                cfg.embedding_multiplier)
     if cfg.frontend == "patch_stub":
         n = cfg.n_prefix_tokens
         patches = torch.einsum("bnd,de->bne", batch["patches"].to(dtype),
@@ -229,16 +246,17 @@ def _apply_block(cfg: ArchConfig, blk: Block, h: torch.Tensor,
                  aux: torch.Tensor, *, index: int, prefill: bool,
                  cache_len: int = 0):
     """Returns (h, aux, the layer's cache or None). The mixer and the
-    feed-forward part, each with its norm and residual add, are spans
-    named by their kind (``attn``, ``ssm``, ``mlp``, ``moe``) with
-    ``layer=index``."""
+    feed-forward part, each with its norm and residual add (the part's
+    output times ``cfg.residual_multiplier``), are spans named by their
+    kind (``attn``, ``ssm``, ``mlp``, ``moe``) with ``layer=index``."""
     mixer, ff = blk.kind.split("+")
+    r = cfg.residual_multiplier
     new_cache = None
     with tracing.span(mixer, layer=index) as sp:
         h = sp.input(h)
         x = blk.ln1(h, cfg.norm_eps)
         if mixer == "attn":
-            kw = dict(theta=cfg.rope_theta, use_rope=cfg.positional == "rope")
+            kw = _attn_kw(cfg)
             if prefill:
                 out, (k, v) = L.attention_prefill(blk.attn, x,
                                                   cache_len=cache_len, **kw)
@@ -249,16 +267,17 @@ def _apply_block(cfg: ArchConfig, blk: Block, h: torch.Tensor,
             out, new_cache = SSM.ssm_fwd(blk.ssm, x, return_state=True)
         else:
             out = SSM.ssm_fwd(blk.ssm, x)
-        h = sp.output(_residual(h, out))
+        h = sp.output(_residual(h, _scaled(out, r)))
     if ff == "mlp":
         with tracing.span("mlp", layer=index) as sp:
             h = sp.input(h)
-            h = sp.output(_residual(h, blk.mlp(blk.ln2(h, cfg.norm_eps))))
+            y = blk.mlp(blk.ln2(h, cfg.norm_eps))
+            h = sp.output(_residual(h, _scaled(y, r)))
     elif ff == "moe":
         with tracing.span("moe", layer=index) as sp:
             h = sp.input(h)
             y, a = MOE.moe_fwd(blk.moe, blk.ln2(h, cfg.norm_eps))
-            h = sp.output(_residual(h, y))
+            h = sp.output(_residual(h, _scaled(y, r)))
             aux = aux + a
     return h, aux, new_cache
 
@@ -502,10 +521,12 @@ def decode_step(cfg: ArchConfig, model: LM, cache: Cache,
 
 def _decode(cfg: ArchConfig, model: LM, cache: Cache, token: torch.Tensor,
             pos: int, dtype) -> Tuple[torch.Tensor, Cache]:
-    h = L.embed_tokens(model.embed, token, dtype)
+    h = _scaled(L.embed_tokens(model.embed, token, dtype),
+                cfg.embedding_multiplier)
     if cfg.positional == "sinusoidal":
         h = h + L.sinusoidal_positions(1, cfg.d_model, offset=pos,
                                        device=h.device).to(dtype)
+    r = cfg.residual_multiplier
     new_caches = []
     for i, (blk, c) in enumerate(zip(model.blocks, cache)):
         mixer, ff = blk.kind.split("+")
@@ -513,13 +534,11 @@ def _decode(cfg: ArchConfig, model: LM, cache: Cache, token: torch.Tensor,
             x = blk.ln1(h, cfg.norm_eps)
             if mixer == "attn":
                 out, (k, v) = L.attention_decode(
-                    blk.attn, x, (c["k"], c["v"]), pos, theta=cfg.rope_theta,
-                    use_rope=cfg.positional == "rope")
-                h = _residual(h, out)
+                    blk.attn, x, (c["k"], c["v"]), pos, **_attn_kw(cfg))
                 new = {**c, "k": k, "v": v}
             else:
                 out, new = SSM.ssm_decode(blk.ssm, x, c)
-                h = _residual(h, out)
+            h = _residual(h, _scaled(out, r))
         if cfg.enc_dec is not None:
             x = blk.ln_x(h, cfg.norm_eps)
             h = _residual(h, L.attention_readonly(blk.xattn, x,
@@ -528,7 +547,7 @@ def _decode(cfg: ArchConfig, model: LM, cache: Cache, token: torch.Tensor,
             with tracing.span(ff, layer=i):
                 x = blk.ln2(h, cfg.norm_eps)
                 y = blk.mlp(x) if ff == "mlp" else MOE.moe_fwd(blk.moe, x)[0]
-                h = _residual(h, y)
+                h = _residual(h, _scaled(y, r))
         new_caches.append(new)
     with tracing.span("head"):
         return _logits(cfg, model, h)[:, 0], new_caches

@@ -15,9 +15,17 @@ E / m experts, and the partial outputs are summed over "model" (the EP
 all-reduce). The sum is a DTensor ``Partial`` placement, so its gradient
 is the output's, on every rank. Without a mesh the same local function
 runs over all experts.
+
+A layer may hold only a share of the experts its router scores (one
+chip's share of an expert-parallel deployment; ``ArchConfig``'s
+``routed_experts``): it routes over all of them, computes its own, and
+what the absent ones would add is left out. A shared expert
+(``shared_expert_ff``), a SwiGLU every token passes through, is added to
+the routed part once, outside any sum over the "model" axis.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, Tuple
 
@@ -29,31 +37,43 @@ from repro_torch import tracing
 from repro_torch.configs import MoEConfig
 from repro_torch.kernels.moe_dispatch import (gather_dot, gather_rows,
                                              gather_sum, slot_map)
-from repro_torch.models.layers import _dense_init, cast
+from repro_torch.models.layers import MLP, _dense_init, cast, mlp_axes
 
 CAPACITY_FACTOR = 1.25
 
 
 class MoE(nn.Module):
+    """The experts held here (``cfg.n_experts``: the first ones), the
+    router over all ``routed`` (0: those held) and, with ``shared_ff``,
+    the shared expert ``shared``. ``routed`` is ``cfg`` with the routed
+    count as its ``n_experts``, as ``_moe_local`` reads it."""
+
     def __init__(self, generator: torch.Generator, d_model: int,
-                 cfg: MoEConfig):
+                 cfg: MoEConfig, routed: int = 0, shared_ff: int = 0):
         super().__init__()
         g = generator
         E, F_ = cfg.n_experts, cfg.d_ff_expert
         self.cfg = cfg
-        self.router = _dense_init(g, (d_model, E), d_model)
+        self.routed = (dataclasses.replace(cfg, n_experts=routed)
+                       if routed and routed != E else cfg)
+        self.router = _dense_init(g, (d_model, self.routed.n_experts),
+                                  d_model)
         self.w_gate = _dense_init(g, (E, d_model, F_), d_model)
         self.w_up = _dense_init(g, (E, d_model, F_), d_model)
         self.w_down = _dense_init(g, (E, F_, d_model), F_)
+        self.shared = MLP(g, d_model, shared_ff) if shared_ff else None
 
 
-def moe_axes():
-    return {
+def moe_axes(shared: bool = False):
+    ax = {
         "router": ("embed", None),
         "w_gate": ("experts", "embed", None),
         "w_up": ("experts", "embed", None),
         "w_down": ("experts", None, "embed"),
     }
+    if shared:
+        ax["shared"] = mlp_axes()
+    return ax
 
 
 def _capacity(tokens: int, cfg: MoEConfig) -> int:
@@ -112,10 +132,10 @@ class _Combine(torch.autograd.Function):
 def _moe_local(w: Dict[str, torch.Tensor], cfg: MoEConfig,
                xf: torch.Tensor, n_local: int, e0: int
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Route all tokens, compute only experts [e0, e0 + n_local), whose
-    weights are ``w["w_gate"]`` etc. ([n_local, ...]; ``w["router"]`` is
-    the whole router). xf: [T, d] → (partial y [T, d], the aux loss's
-    part over those experts)."""
+    """Route all tokens over ``cfg.n_experts`` experts, compute only
+    experts [e0, e0 + n_local), whose weights are ``w["w_gate"]`` etc.
+    ([n_local, ...]; ``w["router"]`` is the whole router). xf: [T, d] →
+    (partial y [T, d], the aux loss's part over those experts)."""
     T, d = xf.shape
     E, k = cfg.n_experts, cfg.top_k
     dtype = xf.dtype
@@ -165,22 +185,29 @@ _WEIGHTS = ("router", "w_gate", "w_up", "w_down")
 
 def moe_fwd(moe: MoE, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, d] → (y, aux_loss). Expert-parallel over the mesh "model"
-    axis when one is active and divides the experts; tokens stay sharded
-    over the data axes."""
+    axis when one is active and divides the held experts; tokens stay
+    sharded over the data axes. The shared expert, if any, is the
+    ``moe.shared`` span."""
     from repro_torch import sharding as shd
 
-    cfg = moe.cfg
     B, S, d = x.shape
-    E = cfg.n_experts
+    E = moe.cfg.n_experts
     mesh = shd.current_mesh()
     names = mesh.mesh_dim_names if mesh is not None else ()
     if "model" not in names or E % mesh.size(names.index("model")):
         w = {k: getattr(moe, k) for k in _WEIGHTS}
         if mesh is None:
-            y, aux = _moe_local(w, cfg, x.reshape(B * S, d), E, 0)
-            return y.reshape(B, S, d), aux
-        return _moe_gathered(w, cfg, x, mesh)
-    return _moe_expert_parallel(moe, x, mesh)
+            y, aux = _moe_local(w, moe.routed, x.reshape(B * S, d), E, 0)
+            y = y.reshape(B, S, d)
+        else:
+            y, aux = _moe_gathered(w, moe.routed, E, x, mesh)
+    else:
+        y, aux = _moe_expert_parallel(moe, x, mesh)
+    if moe.shared is not None:
+        with tracing.span("moe.shared") as sp:
+            ys = sp.output(moe.shared(sp.input(x)))
+        y = y + ys
+    return y, aux
 
 
 def _as_dtensor(t: torch.Tensor, mesh):
@@ -191,17 +218,17 @@ def _as_dtensor(t: torch.Tensor, mesh):
                               run_check=False)
 
 
-def _moe_gathered(w, cfg: MoEConfig, x: torch.Tensor, mesh):
-    """A mesh whose "model" axis does not divide the experts: every rank
-    routes all tokens through all experts (the JAX package leaves this
-    case to its partitioner, over the global tokens), and keeps its
-    shard of y."""
+def _moe_gathered(w, cfg: MoEConfig, held: int, x: torch.Tensor, mesh):
+    """A mesh whose "model" axis does not divide the held experts: every
+    rank routes all tokens through all ``held`` experts (the JAX package
+    leaves this case to its partitioner, over the global tokens), and
+    keeps its shard of y."""
     from torch.distributed.tensor import DTensor, Replicate
     B, S, d = x.shape
     xd = _as_dtensor(x, mesh)
     full = {k: _as_dtensor(v, mesh).full_tensor() for k, v in w.items()}
     y, aux = _moe_local(full, cfg, xd.full_tensor().reshape(B * S, d),
-                        cfg.n_experts, 0)
+                        held, 0)
     rep = [Replicate()] * mesh.ndim
     y = DTensor.from_local(y.reshape(B, S, d), mesh, rep, run_check=False)
     aux = DTensor.from_local(aux, mesh, rep, run_check=False)
@@ -211,8 +238,8 @@ def _moe_gathered(w, cfg: MoEConfig, x: torch.Tensor, mesh):
 
 
 def _moe_expert_parallel(moe: MoE, x: torch.Tensor, mesh):
-    """Each rank of "model" runs experts [idx·E/m, (idx + 1)·E/m) on its
-    data shard's tokens; y and aux are ``Partial`` over "model" (summed
+    """Each rank of "model" runs held experts [idx·E/m, (idx + 1)·E/m) on
+    its data shard's tokens; y and aux are ``Partial`` over "model" (summed
     where they are read). The local weights and tokens take ``Partial``
     gradients over the axes whose ranks read them with different tokens
     or experts. aux is each data shard's, averaged over the data axes
@@ -220,11 +247,10 @@ def _moe_expert_parallel(moe: MoE, x: torch.Tensor, mesh):
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     from repro_torch import sharding as shd
 
-    cfg = moe.cfg
     B, S, d = x.shape
     names = list(mesh.mesh_dim_names)
     mi = names.index("model")
-    n_local = cfg.n_experts // mesh.size(mi)
+    n_local = moe.cfg.n_experts // mesh.size(mi)
     idx = mesh.get_local_rank("model")
     b_ax = shd.batch_axes_for(mesh, B)
     b_names = () if b_ax is None else (
@@ -247,7 +273,7 @@ def _moe_expert_parallel(moe: MoE, x: torch.Tensor, mesh):
         w[k] = wd.to_local(grad_placements=grad)
 
     Bl = xl.shape[0]
-    y, aux = _moe_local(w, cfg, xl.reshape(Bl * S, d), n_local,
+    y, aux = _moe_local(w, moe.routed, xl.reshape(Bl * S, d), n_local,
                         idx * n_local)
     y_pl = [Partial() if i == mi else p for i, p in enumerate(x_pl)]
     # the mean over the data shards as a sum of each shard's aux / n (a

@@ -11,7 +11,7 @@ gated output and the one-token decode are plain torch.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -22,8 +22,8 @@ from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.models.layers import _dense_init, cast, weight
 
 
-def ssm_axes():
-    return {
+def ssm_axes(conv_bias: bool = False):
+    ax = {
         "w_z": ("embed", "ssm_inner"),
         "w_x": ("embed", "ssm_inner"),
         "w_B": ("embed", None),
@@ -37,11 +37,18 @@ def ssm_axes():
         "norm": ("ssm_inner",),
         "out_proj": ("ssm_inner", "embed"),
     }
+    if conv_bias:
+        ax["conv_x_bias"] = ("ssm_inner",)
+        ax["conv_BC_bias"] = (None,)
+    return ax
 
 
 class SSM(nn.Module):
+    """A Mamba-2 mixer's parameters; with ``conv_bias`` the convolution's
+    biases ``conv_x_bias`` and ``conv_BC_bias`` (zeros)."""
+
     def __init__(self, generator: torch.Generator, d_model: int,
-                 cfg: SSMConfig):
+                 cfg: SSMConfig, conv_bias: bool = False):
         super().__init__()
         g, dev = generator, generator.device
         din = cfg.d_inner(d_model)
@@ -55,6 +62,11 @@ class SSM(nn.Module):
         self.w_dt = _dense_init(g, (d_model, H), d_model)
         self.conv_x = _dense_init(g, (cfg.d_conv, din), cfg.d_conv)
         self.conv_BC = _dense_init(g, (cfg.d_conv, 2 * G * N), cfg.d_conv)
+        self.conv_x_bias = self.conv_BC_bias = None
+        if conv_bias:
+            self.conv_x_bias = nn.Parameter(torch.zeros(din, device=dev))
+            self.conv_BC_bias = nn.Parameter(torch.zeros(2 * G * N,
+                                                         device=dev))
         self.A_log = nn.Parameter(torch.log(torch.linspace(
             1.0, 16.0, H, dtype=torch.float32, device=dev)))
         self.dt_bias = nn.Parameter(torch.zeros(H, device=dev))
@@ -79,8 +91,10 @@ class SSM(nn.Module):
         return dt, -torch.exp(self.A_log)
 
 
-def _causal_conv(u: torch.Tensor, conv_w: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv via tap shifts. u: [B, L, C]; conv_w: [K, C]."""
+def _causal_conv(u: torch.Tensor, conv_w: torch.Tensor,
+                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Depthwise causal conv via tap shifts, plus ``bias``, then silu.
+    u: [B, L, C]; conv_w: [K, C]; bias: [C] or None."""
     K, L = conv_w.shape[0], u.shape[1]
     out = u * conv_w[K - 1]
     for i in range(1, K):
@@ -88,7 +102,13 @@ def _causal_conv(u: torch.Tensor, conv_w: torch.Tensor) -> torch.Tensor:
         shifted = torch.cat([torch.zeros_like(u[:, :n]), u[:, :L - n]],
                             dim=1)
         out = out + shifted * conv_w[K - 1 - i]
+    if bias is not None:
+        out = out + bias
     return F.silu(out)
+
+
+def _bias(b: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
+    return None if b is None else weight(b, dtype)
 
 
 def _gated_out(ssm: SSM, y: torch.Tensor, z: torch.Tensor,
@@ -111,8 +131,10 @@ def ssm_fwd(ssm: SSM, x: torch.Tensor, return_state: bool = False):
     din = cfg.d_inner(ssm.d_model)
 
     z, xr, BCr, dt_raw = ssm._in(x)
-    xconv = _causal_conv(xr, weight(ssm.conv_x, dtype))
-    BC = _causal_conv(BCr, weight(ssm.conv_BC, dtype))
+    xconv = _causal_conv(xr, weight(ssm.conv_x, dtype),
+                         _bias(ssm.conv_x_bias, dtype))
+    BC = _causal_conv(BCr, weight(ssm.conv_BC, dtype),
+                      _bias(ssm.conv_BC_bias, dtype))
     xs = xconv.reshape(Bb, L, H, P)
     B_ = BC[..., : G * N].reshape(Bb, L, G, N).contiguous()
     C = BC[..., G * N:].reshape(Bb, L, G, N).contiguous()
@@ -157,7 +179,11 @@ def ssm_decode(ssm: SSM, x: torch.Tensor, cache: Dict[str, torch.Tensor]):
     new_row = torch.cat([xr, BCr], dim=-1)                   # [B, 1, C]
     window = torch.cat([cache["conv"], new_row], dim=1)      # [B, K, C]
     conv_w = torch.cat([ssm.conv_x, ssm.conv_BC], dim=-1).to(dtype)
-    conv_out = F.silu(torch.einsum("bkc,kc->bc", window, conv_w))
+    conv_out = torch.einsum("bkc,kc->bc", window, conv_w)
+    if ssm.conv_x_bias is not None:
+        conv_out = conv_out + torch.cat([ssm.conv_x_bias, ssm.conv_BC_bias]
+                                        ).to(dtype)
+    conv_out = F.silu(conv_out)
     new_conv = window[:, 1:]
 
     xs = conv_out[..., :din].reshape(Bb, H, P)

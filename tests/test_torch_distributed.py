@@ -269,7 +269,7 @@ cot = torch.from_numpy(rng.standard_normal((4, 8, d)).astype(np.float32))
 
 
 def layer():
-    return MOE.MoE(torch.Generator().manual_seed(0), d, cfg)
+    return MOE.MoE(torch.Generator().manual_seed(0), d, cfg{share})
 
 
 def loss(y, aux, c):
@@ -320,7 +320,8 @@ def test_moe_expert_parallel(tmp_path, data, model):
     """(1, 3): a "model" axis that does not divide the 4 experts, where
     every rank routes all tokens through all experts (the JAX package
     leaves that case to its partitioner)."""
-    _run(MOE_BODY.format(data=data, model=model), data * model, tmp_path)
+    _run(MOE_BODY.format(data=data, model=model, share=""), data * model,
+         tmp_path)
     if data != 1:
         return
     # one data shard: the JAX package's single-device layer on the same
@@ -336,6 +337,17 @@ def test_moe_expert_parallel(tmp_path, data, model):
     y_ref, _ = RMOE.moe_fwd(params, jnp.asarray(x), cfg)
     np.testing.assert_allclose(got["y"], np.asarray(y_ref), atol=1e-5,
                                rtol=1e-5)
+
+
+@pytest.mark.parametrize("data,model", [(1, 2), (2, 2), (1, 3)])
+def test_moe_share_expert_parallel(tmp_path, data, model):
+    """A layer holding 4 of the 16 experts its router scores, with a
+    shared expert: split over "model" (or, at 3, every rank through all
+    4), each data shard's output and the gradients equal the
+    single-device layer's, the shared expert counted once."""
+    _run(MOE_BODY.format(data=data, model=model,
+                         share=", routed=16, shared_ff=48"),
+         data * model, tmp_path)
 
 
 # ------------------------------------------------------------- train_loop

@@ -195,9 +195,10 @@ def test_gradients_match_the_loop(moe_cfg, capacity_factor, experts,
 
 
 class _with:
-    """The MoE module's config with the weights ``w`` in its place."""
+    """The MoE module's configs and shared expert with the weights ``w``
+    in its place."""
 
     def __init__(self, moe, w):
-        self.cfg = moe.cfg
+        self.cfg, self.routed, self.shared = moe.cfg, moe.routed, moe.shared
         for n, v in w.items():
             setattr(self, n, v)
