@@ -151,18 +151,20 @@ JSON line; any failure exits non-zero:
           — train_4k's global batch of 256 cut to one card —, seq 4,096,
           3 steps, remat "full", bf16): per step ms, tokens/s, peak
           memory, loss and grad norm, all finite, and the kernels'
-          launches per step, exactly 2 per path layer (the forward and
-          its recompute: 56 flash_attention_wgmma, 96 ssd_scan_wgmma), 1
-          per path layer of the backward kernel (28
-          flash_attention_backward_wgmma, 48 ssd_scan_backward_wgmma) and
-          nothing else; the kernels' device ms inside a step
+          launches per run of a step on the host, exactly 2 per path
+          layer (the forward and its recompute: 56
+          flash_attention_wgmma, 96 ssd_scan_wgmma), 1 per path layer of
+          the backward kernel (28 flash_attention_backward_wgmma, 48
+          ssd_scan_backward_wgmma) and nothing else (``host_runs``: a
+          step op by op runs once, one that captures its CUDA graph
+          twice, a warm-up and the capture, a replay never); the kernels' device ms inside a step
           (``chip_smoke.py --trace-train ARCH``, depth 2, a child
           process); depth cut to 2 at full width: one fp32 train step on
           the card against the CPU's (loss and grad norm within rtol
           1e-4, parameters within 2·lr + 1e-6); the reduced defaults on
           the card (head dim 16): train_loop smollm-135m for 20 steps
           (the loss drops; the wgmma forward and the backward kernel at
-          d 16 once a layer a step; the d 16 kernels, the bf16 backward
+          d 16 once a layer a run of a step on the host; the d 16 kernels, the bf16 backward
           kernel, SDPA and SDPA's backward timed, and their device ms from
           torch.profiler in a child process, ``chip_smoke.py
           --trace-d16``) and 3 fp32 steps; the fp32 d 16 kernel also at
@@ -180,7 +182,9 @@ JSON line; any failure exits non-zero:
           granite-4.0-h-small at its benchmark cell's share (10 layers,
           9 of 72 experts held; batch 1, 1 step), each without a mesh
           and then on the mesh (DTensor parameters, the batch sharded by
-          the loader): exactly 56 flash_attention_wgmma / 96
+          the loader): for each run of a step on the host (without a
+          mesh the step replays a CUDA graph from its second step on),
+          exactly 56 flash_attention_wgmma / 96
           ssd_scan_wgmma / 48 flash_attention_wgmma / 2
           flash_attention_wgmma and 18 ssd_scan_wgmma launches a step
           (and 28 / 0 / 24 / 1 flash_attention_backward_wgmma, 0 / 48 /
@@ -539,6 +543,20 @@ def fire_tasks(profiles, cost, n=N_FIRES, seed=SEED):
         task.dvfs_hint = rng.choice((1.0, 0.8, 0.6))
         out.append(task)
     return out
+
+
+def host_runs(before: dict) -> int:
+    """The runs on the host of the train steps since the tallies
+    ``before`` (``repro_torch.tracing.tallies()``): once a step op by op,
+    twice a step that captured its CUDA graph (a warm-up of the forward
+    and backward, then the capture), never a replay, whose kernels the
+    graph launches without the host (so no launch counter moves)."""
+    from repro_torch import tracing
+    now = tracing.tallies()
+    return (now.get("train.graph.eager", 0)
+            - before.get("train.graph.eager", 0)
+            + 2 * (now.get("train.graph.capture", 0)
+                   - before.get("train.graph.capture", 0)))
 
 
 def zeroed_counters() -> dict:
@@ -2329,6 +2347,7 @@ def train_path(dev, gen, smi0) -> list:
 
     import numpy as np
     import torch
+    from repro_torch import tracing
     from repro_torch.configs import get_arch
     from repro_torch.core.emulator import measure_step_time
     from repro_torch.kernels.flash_attention import (attention_reference,
@@ -2403,19 +2422,25 @@ def train_path(dev, gen, smi0) -> list:
         steps = []
         torch.cuda.reset_peak_memory_stats(dev)
 
-        def on_step(step, rec, counters=counters, steps=steps, arch=arch):
+        tallies = [tracing.tallies()]
+
+        def on_step(step, rec, counters=counters, steps=steps, arch=arch,
+                    tallies=tallies):
             launches = {k: c.launches for k, c in counters.items()}
             for c in counters.values():
                 c.launches = 0
             counters["window_agg"].vector_launches = 0
             counters["window_agg"].scalar_launches = 0
+            runs = host_runs(tallies[0])
+            tallies[0] = tracing.tallies()
             steps.append({"step": step, "ms": rec["seconds"] * 1e3,
                           "tokens_per_s": TRAIN_FULL["batch"]
                           * TRAIN_FULL["seq"] / rec["seconds"],
                           "max_memory_allocated":
                           torch.cuda.max_memory_allocated(dev),
                           "loss": rec["loss"], "grad_norm": rec["grad_norm"],
-                          "lr": rec["lr"], "launches": launches})
+                          "lr": rec["lr"], "launches": launches,
+                          "host_runs": runs})
         printed = io.StringIO()
         with contextlib.redirect_stdout(printed):
             state, losses = train_loop(arch, full=True, seed=SEED,
@@ -2433,8 +2458,9 @@ def train_path(dev, gen, smi0) -> list:
                     and math.isfinite(rec["grad_norm"]),
                     f"{arch} step {rec['step']}: loss {rec['loss']}, grad "
                     f"norm {rec['grad_norm']}")
-            require(rec["launches"] == want, f"{arch} step {rec['step']}: "
-                    f"launches {rec['launches']}, want {want}")
+            expect = {k: n * rec["host_runs"] for k, n in want.items()}
+            require(rec["launches"] == expect, f"{arch} step {rec['step']}: "
+                    f"launches {rec['launches']}, want {expect}")
         per_step[arch] = (kernel, 2 * n_path, steps)
         emit("train", case="full_width", arch=arch, **TRAIN_FULL,
              remat="full", compute_dtype="bfloat16",
@@ -2464,18 +2490,22 @@ def train_path(dev, gen, smi0) -> list:
     # (e) the reduced defaults on the card: head dim 16
     counters = zeroed_counters()
     printed = io.StringIO()
+    before = tracing.tallies()
     with contextlib.redirect_stdout(printed):
         _, losses = train_loop("smollm-135m", steps=TRAIN_DEFAULT_STEPS,
                                log_every=10**9)
+    runs = host_runs(before)
     # bf16 at d 16: the wgmma forward and the backward kernel, once a
-    # layer a step
+    # layer a run of a step on the host (a replay launches them from its
+    # graph)
     d16_launches = counters["flash_attention_wgmma"].launches
     d16_bwd_launches = counters["flash_attention_backward_wgmma"].launches
     n_layers = get_arch("smollm-135m").reduced().n_layers
-    require(d16_launches == TRAIN_DEFAULT_STEPS * n_layers
-            and d16_bwd_launches == TRAIN_DEFAULT_STEPS * n_layers
+    require(d16_launches == runs * n_layers
+            and d16_bwd_launches == runs * n_layers
             and counters["flash_attention_d16"].launches == 0,
-            f"reduced train_loop: flash_attention_wgmma launches "
+            f"reduced train_loop: {runs} runs on the host, "
+            f"flash_attention_wgmma launches "
             f"{d16_launches}, flash_attention_backward_wgmma "
             f"{d16_bwd_launches}, flash_attention_d16 "
             f"{counters['flash_attention_d16'].launches}")
@@ -2484,13 +2514,14 @@ def train_path(dev, gen, smi0) -> list:
             f"reduced train_loop: losses {losses}")
     # the same loop in fp32 compute, a few steps: the fp32 d 16 kernel
     counters = zeroed_counters()
+    before = tracing.tallies()
     with contextlib.redirect_stdout(printed):
         _, losses32 = train_loop(
             "smollm-135m", steps=3, log_every=10**9,
             hp=TrainHParams(peak_lr=1e-3, warmup_steps=20, total_steps=3,
                             remat="none", compute_dtype=torch.float32))
     d16_launches32 = counters["flash_attention_d16"].launches
-    require(d16_launches32 == 3 * n_layers
+    require(d16_launches32 == host_runs(before) * n_layers
             and counters["flash_attention_backward_wgmma"].launches == 0
             and all(math.isfinite(x) for x in losses32),
             f"reduced fp32 train_loop: launches {d16_launches32}, losses "
@@ -2712,6 +2743,7 @@ def dist_child() -> None:
 
     import torch
     import torch.distributed as dist
+    from repro_torch import tracing
     from repro_torch.launch.mesh import init_local_world, make_dev_mesh
     from repro_torch.launch.train import train_loop
     from repro_torch.models import moe as MOE
@@ -2766,15 +2798,19 @@ def dist_child() -> None:
                 torch.cuda.reset_peak_memory_stats(dev)
                 for k in moe_entries:
                     moe_entries[k] = 0
+                tallies = [tracing.tallies()]
 
-                def on_step(step, rec, counters=counters, recs=recs):
+                def on_step(step, rec, counters=counters, recs=recs,
+                            tallies=tallies):
                     recs.append({"step": step, "ms": rec["seconds"] * 1e3,
                                  "loss": rec["loss"],
                                  "loss_total": rec["loss_total"],
                                  "grad_norm": rec["grad_norm"],
                                  "launches": {k: c.launches
                                               for k, c in counters.items()},
-                                 "moe_entries": dict(moe_entries)})
+                                 "moe_entries": dict(moe_entries),
+                                 "host_runs": host_runs(tallies[0])})
+                    tallies[0] = tracing.tallies()
                     for c in counters.values():
                         c.launches = 0
                     for k in moe_entries:
@@ -2791,9 +2827,15 @@ def dist_child() -> None:
                 del state
                 torch.cuda.empty_cache()
                 for rec in recs:
-                    require(rec["launches"] == want, f"{arch} {name} step "
+                    expect = {k: n * rec["host_runs"]
+                              for k, n in want.items()}
+                    require(rec["launches"] == expect, f"{arch} {name} step "
                             f"{rec['step']}: launches {rec['launches']}, "
-                            f"want {want}")
+                            f"want {expect}")
+                    require(m is None or rec["host_runs"] == 1,
+                            f"{arch} on the mesh, step {rec['step']}: "
+                            f"{rec['host_runs']} runs on the host, want 1 "
+                            f"(op by op)")
                     # remat "full" runs each MoE layer's forward twice
                     ep = 2 * n_moe if m is not None else 0
                     require(rec["moe_entries"] == {

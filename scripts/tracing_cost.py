@@ -8,7 +8,11 @@ timeline part runs, which turns the spans and their profiler ranges on;
 ``prof_unmirrored``, the same profiler with the spans on by
 ``enable()`` but hidden from the profiler's flag, so that they open no
 profiler range. A checkout older than its spans has ``off`` and
-``prof`` alone.
+``prof`` alone. On a checkout whose train step replays a CUDA graph
+while tracing is off, and runs op by op while it is on, the train
+cell's ``off`` steps that follow a traced step capture the graph again:
+its train numbers then time capture and replay against steps op by op,
+not the spans' cost; the decode cell's are unchanged.
 
 Run on a machine with a card, from any directory:
 

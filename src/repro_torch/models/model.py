@@ -352,7 +352,9 @@ def _remat(fn, remat: str):
     there is nothing to save and ``fn`` runs as it is. The recompute runs
     under the mesh of the call (``sharding.use_mesh``): on the card the
     backward runs in autograd's device thread, which does not see the
-    caller's context."""
+    caller's context. The layers draw no random numbers, so no generator
+    state is stashed for the recompute (reading the card's generator is
+    refused while a CUDA graph captures the train step)."""
     if remat not in REMAT:
         raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
     if remat == "none" or not torch.is_grad_enabled():
@@ -361,9 +363,10 @@ def _remat(fn, remat: str):
     if mesh is not None:
         fn = functools.partial(_under_mesh, fn, mesh)
     if remat == "full":
-        return functools.partial(checkpoint, fn, use_reentrant=False)
+        return functools.partial(checkpoint, fn, use_reentrant=False,
+                                 preserve_rng_state=False)
     return functools.partial(
-        checkpoint, fn, use_reentrant=False,
+        checkpoint, fn, use_reentrant=False, preserve_rng_state=False,
         context_fn=functools.partial(create_selective_checkpoint_contexts,
                                      _dots_policy))
 

@@ -12,7 +12,10 @@ float up to the libraries' own rounding:
 of p before the Adam step, which rounds differently, so it is not used.
 ``adamw_update`` writes the new parameters and moments into the given
 tensors in place (the JAX package donates those buffers to the step),
-through ``torch._foreach_*`` in float32.
+through ``torch._foreach_*`` in float32. The rate and the bias
+corrections reach those calls as 0-d float32 tensors on the parameters'
+device, so that a step whose count lives on the device (the train
+step's counter) holds no host number that changes from step to step.
 """
 from __future__ import annotations
 
@@ -40,9 +43,11 @@ def adamw_init(params: Tensors, moment_dtype=torch.float32) -> AdamWState:
                                     for k, z in zeros.items()}, count=0)
 
 
-def _bias_corrections(count: int, b1: float, b2: float):
-    c = torch.tensor(float(count), dtype=torch.float32)
-    return (float(1.0 - b1 ** c), float(1.0 - b2 ** c))
+def bias_corrections(count, b1: float, b2: float):
+    """(1 - b1^t, 1 - b2^t) in float32 for the step count t, a host int
+    or a 0-d tensor; 0-d float32 tensors on the count's device."""
+    t = torch.as_tensor(count).to(torch.float32)
+    return 1.0 - b1 ** t, 1.0 - b2 ** t
 
 
 _GROUP = 32     # tensors per group of foreach calls
@@ -69,14 +74,19 @@ def _foreach_step(p, g, m, v, lr, b1, b2, bc1, bc2, eps, weight_decay):
 @torch.no_grad()
 def adamw_update(grads: Tensors, state: AdamWState, params: Tensors, *,
                  lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
-                 weight_decay: float = 0.1) -> AdamWState:
+                 weight_decay: float = 0.1, count=None) -> AdamWState:
     """One AdamW step on ``params`` (updated in place, as are the
     moments); returns the state with its count advanced. ``lr`` is a
-    float or a 0-d tensor (read as float32)."""
-    count = state.count + 1
-    bc1, bc2 = _bias_corrections(count, b1, b2)
-    lr = float(torch.as_tensor(lr, dtype=torch.float32))
+    float or a 0-d tensor (read as float32). ``count`` is this step's
+    count, ``state.count + 1``, as a 0-d tensor on the parameters'
+    device where the caller keeps it there; by default it is taken from
+    the state."""
     keys = list(params)
+    dev = params[keys[0]].device if keys else None
+    bcs = bias_corrections(state.count + 1 if count is None else count,
+                           b1, b2)
+    lr, bc1, bc2 = (torch.as_tensor(x, dtype=torch.float32, device=dev)
+                    for x in (lr, *bcs))
     # in groups, so that the temporaries stay a fraction of the model
     for i in range(0, len(keys), _GROUP):
         group = keys[i:i + _GROUP]
@@ -90,4 +100,4 @@ def adamw_update(grads: Tensors, state: AdamWState, params: Tensors, *,
             for k, f in zip(group, views):
                 if t[k] is not f:
                     t[k].copy_(f)
-    return AdamWState(mu=state.mu, nu=state.nu, count=count)
+    return AdamWState(mu=state.mu, nu=state.nu, count=state.count + 1)

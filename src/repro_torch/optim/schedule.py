@@ -1,6 +1,6 @@
 """Learning-rate schedules (pure functions of the step counter), in
 float32 as the JAX package computes them; they return a 0-d float32
-tensor on the CPU."""
+tensor on the step's device (the CPU for a host int)."""
 from __future__ import annotations
 
 import math

@@ -36,6 +36,14 @@ A counter (``count``) keeps a host int or a reference to a tensor the
 program has already computed, never reduced or copied while recording;
 ``counters()`` reads the values back to the host. Spans and counters
 share one bounded buffer; ``dropped()`` counts what did not fit.
+
+A tally (``tally``) is a host int that counts whether tracing is on or
+off, one int add a call and no tensor op: it counts what happens in the
+untraced steps too. ``tallies()`` reads them. The train step keeps
+three: each call adds one to ``train.graph.replay`` (it ran by a replay
+of its CUDA graph) or to ``train.graph.eager`` (op by op), and a call
+that captured the graph first also adds one to ``train.graph.capture``.
+``reset()`` forgets the records and zeroes the tallies.
 """
 from __future__ import annotations
 
@@ -88,6 +96,7 @@ class Tracer:
         self.on = False
         self.capacity = CAPACITY
         self.records: List[Any] = []
+        self.tallies: Dict[str, int] = {}
         self.n_dropped = 0
         self.ids = itertools.count(1)
         self.lock = threading.Lock()
@@ -260,6 +269,16 @@ def count(name: str, value, **attrs) -> None:
                       time.time_ns()))
 
 
+def tally(name: str) -> None:
+    """Adds one to the host int ``name``, whether tracing is on or off."""
+    TRACER.tallies[name] = TRACER.tallies.get(name, 0) + 1
+
+
+def tallies() -> Dict[str, int]:
+    """The tallies since the last reset, by name."""
+    return dict(TRACER.tallies)
+
+
 def enabled() -> bool:
     """Whether spans record now: after ``enable()`` or while a profiler
     records."""
@@ -297,7 +316,8 @@ def dropped() -> int:
 
 
 def reset() -> None:
-    """Forgets every record."""
+    """Forgets every record and zeroes the tallies."""
     with TRACER.lock:
         TRACER.records = []
         TRACER.n_dropped = 0
+        TRACER.tallies = {}

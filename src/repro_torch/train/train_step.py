@@ -15,12 +15,27 @@ profile's placements (TP only, no FSDP), once per step, and the
 microbatches read those copies: one gather a step instead of one per
 layer and microbatch. Their gradients are summed in float32 and go back
 to the masters' placements once.
+
+The schedule's step and AdamW's count live on the device as well as in
+the state's host ints: the step reads the rate and the bias corrections
+from that counter and advances it in place, so that no host number of
+the step changes from one step to the next. That lets the step replay
+itself on the card: on a CUDA device, without a mesh, with one
+microbatch and without ``gather_once``, a batch shape's first call runs
+op by op, its second captures the whole step (forward with remat,
+backward, clipping, the schedule, AdamW) in one CUDA graph and replays
+it, and later calls of that shape replay the graph, the batch copied
+into the graph's own tensors. While tracing is on (``tracing.enable()``
+or any ``torch.profiler``) the step runs op by op, after releasing the
+graph, so that the spans and the profiler see every op; the next call
+without it captures again. The tallies ``train.graph.*`` of
+``repro_torch.tracing`` count how each call ran.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -28,7 +43,8 @@ from repro_torch import sharding as shd
 from repro_torch import tracing
 from repro_torch.configs import ArchConfig
 from repro_torch.models import model as M
-from repro_torch.optim import adamw_update, clip_by_global_norm, cosine_schedule
+from repro_torch.optim import (AdamWState, adamw_update, clip_by_global_norm,
+                               cosine_schedule)
 from repro_torch.train.state import TrainState
 
 
@@ -52,8 +68,12 @@ def make_train_step(cfg: ArchConfig, hp: TrainHParams):
     """Returns train_step(state, batch) -> (state, metrics): metrics
     ``loss``, ``aux_loss``, ``n_tokens`` (means over the microbatches),
     ``grad_norm`` (before clipping), ``lr`` and ``loss_total`` (loss +
-    aux), as 0-d float32 tensors. Its phases are the spans
-    ``train.forward``, ``train.backward`` and ``train.optimizer``."""
+    aux), as 0-d float32 tensors of their own. Its phases are the spans
+    ``train.forward``, ``train.backward`` and ``train.optimizer``. The
+    parameters and moments are updated in place; on the card the step
+    may replay a CUDA graph (the module's docstring says when)."""
+    counters = _Counters()
+    graph = _StepGraph()
 
     def loss_and_backward(model: M.LM, mb: M.Batch):
         with tracing.span("train.forward"):
@@ -64,7 +84,17 @@ def make_train_step(cfg: ArchConfig, hp: TrainHParams):
             total.backward()
         return total.detach(), {k: v.detach() for k, v in metrics.items()}
 
-    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+    def warm(state: TrainState, batch: Dict[str, torch.Tensor]) -> None:
+        """The forward and backward alone, the gradients dropped: the
+        state is left as it was."""
+        loss_and_backward(state.params, batch)
+        for p in state.params.parameters():
+            p.grad = None
+
+    def run(state: TrainState, batch: Dict[str, torch.Tensor],
+            ctr: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The step op by op on the device counter ``ctr`` ([step,
+        count], advanced in place) -> the metrics."""
         model = state.params
         params = dict(model.named_parameters())
         for p in params.values():
@@ -95,16 +125,143 @@ def make_train_step(cfg: ArchConfig, hp: TrainHParams):
             grads, gnorm = clip_by_global_norm(grads, hp.clip_norm)
             for p in params.values():
                 p.grad = None
-            lr = cosine_schedule(state.step, hp.warmup_steps,
-                                 hp.total_steps, hp.peak_lr)
-            opt = adamw_update(grads, state.opt, params, lr=lr,
-                               weight_decay=hp.weight_decay)
+            lr = cosine_schedule(ctr[0], hp.warmup_steps, hp.total_steps,
+                                 hp.peak_lr)
+            adamw_update(grads, state.opt, params, lr=lr,
+                         weight_decay=hp.weight_decay, count=ctr[1] + 1)
+            ctr.add_(1)
             del grads
-        new_state = TrainState(params=model, opt=opt, step=state.step + 1)
-        metrics = dict(metrics, grad_norm=gnorm, lr=lr, loss_total=l)
-        return new_state, metrics
+        return dict(metrics, grad_norm=gnorm, lr=lr, loss_total=l)
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        device = next(state.params.parameters()).device
+        ctr = counters.at(device, state)
+        if _graphable(device, hp):
+            metrics = graph(run, warm, state, batch, ctr)
+        else:
+            tracing.tally("train.graph.eager")
+            metrics = run(state, batch, ctr)
+        counters.advanced(device)
+        opt = AdamWState(mu=state.opt.mu, nu=state.opt.nu,
+                         count=state.opt.count + 1)
+        return TrainState(params=state.params, opt=opt,
+                          step=state.step + 1), metrics
 
     return train_step
+
+
+def _graphable(device: torch.device, hp: TrainHParams) -> bool:
+    """Whether the step may replay a CUDA graph: on a CUDA device, without
+    a mesh, with one microbatch and without ``gather_once``."""
+    return (device.type == "cuda" and shd.current_mesh() is None
+            and hp.grad_accum <= 1 and not hp.gather_once)
+
+
+class _Counters:
+    """The step's counters on each device, ``[step, count]`` as int64,
+    which the step advances in place, and the host's pair that each
+    holds; a state whose host ints differ (a fresh or restored one) is
+    written in before its step."""
+
+    def __init__(self):
+        self.on: Dict[torch.device, list] = {}
+
+    def at(self, device: torch.device, state: TrainState) -> torch.Tensor:
+        want = (state.step, state.opt.count)
+        hit = self.on.get(device)
+        if hit is None:
+            hit = self.on[device] = [
+                torch.tensor(want, dtype=torch.int64, device=device), want]
+        elif hit[1] != want:
+            hit[0][0].fill_(want[0])
+            hit[0][1].fill_(want[1])
+            hit[1] = want
+        return hit[0]
+
+    def advanced(self, device: torch.device) -> None:
+        hit = self.on[device]
+        hit[1] = (hit[1][0] + 1, hit[1][1] + 1)
+
+
+def _state_tensors(state: TrainState) -> tuple:
+    """The tensors a step reads and writes in place: the parameters and
+    both moments."""
+    return (*state.params.parameters(), *state.opt.mu.values(),
+            *state.opt.nu.values())
+
+
+class _StepGraph:
+    """The whole step as one CUDA graph, for one batch shape and one
+    state's tensors at a time (a graph's memory pool holds a step's
+    activations, so a second graph would hold them twice)."""
+
+    def __init__(self):
+        self.seen: set = set()         # batch shapes that ran op by op
+        self.key = None                # the graph's batch shape
+        self.tensors: tuple = ()       # the state tensors it updates
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.batch: Dict[str, torch.Tensor] = {}
+        self.out: Dict[str, torch.Tensor] = {}
+
+    def __call__(self, run, warm, state, batch, ctr):
+        key = _shape_key(batch)
+        if tracing.enabled():
+            self.release()
+            self.seen.add(key)
+            tracing.tally("train.graph.eager")
+            return run(state, batch, ctr)
+        if not (self.graph is not None and key == self.key
+                and _same(self.tensors, _state_tensors(state))):
+            self.release()
+            if key not in self.seen:
+                self.seen.add(key)
+                tracing.tally("train.graph.eager")
+                return run(state, batch, ctr)
+            self.capture(run, warm, state, batch, ctr, key)
+        for k, v in batch.items():
+            self.batch[k].copy_(v)
+        self.graph.replay()
+        tracing.tally("train.graph.replay")
+        return {k: v.clone() for k, v in self.out.items()}
+
+    def capture(self, run, warm, state, batch, ctr, key) -> None:
+        """The graph of ``run`` on copies of ``batch``, after a warm-up
+        of the forward and backward on the capture's side stream."""
+        dev = ctr.device
+        static = {k: v.clone() for k, v in batch.items()}
+        # the op-by-op steps' cached blocks belong to another stream: give
+        # them back first, so that the warm-up and then the graph's pool
+        # (entering the capture empties the cache again) take their place
+        # rather than room beside them
+        torch.cuda.empty_cache()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):          # warm-up, off the graph
+            warm(state, static)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            out = run(state, static, ctr)
+        self.graph, self.batch, self.out = graph, static, out
+        self.key, self.tensors = key, _state_tensors(state)
+        tracing.tally("train.graph.capture")
+
+    def release(self) -> None:
+        """Drops the graph and returns its pool to the card."""
+        if self.graph is None:
+            return
+        self.graph = self.key = None
+        self.batch, self.out, self.tensors = {}, {}, ()
+        torch.cuda.empty_cache()
+
+
+def _shape_key(batch: Dict[str, torch.Tensor]) -> tuple:
+    """The input shape of one step: every batch tensor's name and shape."""
+    return tuple((k, tuple(v.shape)) for k, v in sorted(batch.items()))
+
+
+def _same(a: tuple, b: tuple) -> bool:
+    return len(a) == len(b) and all(x is y for x, y in zip(a, b))
 
 
 def _microbatches(batch: Dict[str, torch.Tensor], n: int):

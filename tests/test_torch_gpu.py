@@ -12,6 +12,7 @@ runs where only PyTorch is installed:
 """
 import copy
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -1174,6 +1175,119 @@ def test_moe_layer_kernels_match_plain_on_the_card(cuda, dtype, monkeypatch):
     for a, b in zip(got, want):
         a, b = a.detach().float(), b.detach().float()
         assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+
+
+# ------------------------------------------- the train step's CUDA graph
+def _graph_case(cuda, seq=128, batch=2, steps=5):
+    """reduced() granite-moe-1b-a400m at head dim 64 (granite's flash
+    kernels, the MoE's dispatch kernels), its weights, and ``steps``
+    batches of ``batch`` × ``seq`` on the card."""
+    cfg = dataclasses.replace(get_arch("granite-moe-1b-a400m").reduced(),
+                              d_head=64)
+    model = M.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    batches = [{k: torch.as_tensor(v, device=cuda) for k, v in
+                make_batch(cfg, seq, batch, i).items()} for i in range(steps)]
+    return cfg, model, batches
+
+
+def _tallies_since(before):
+    from repro_torch import tracing
+    now = tracing.tallies()
+    return tuple(now.get(f"train.graph.{k}", 0) - before.get(
+        f"train.graph.{k}", 0) for k in ("eager", "capture", "replay"))
+
+
+@pytest.mark.gpu
+def test_train_step_graph_equals_eager_bit_for_bit(cuda, monkeypatch):
+    """Five bf16 remat-full steps from the same weights, one closure
+    replaying its CUDA graph (step 1 op by op, step 2 captured and
+    replayed, steps 3-5 replayed), the other op by op: parameters, both
+    moments and every metric bitwise equal, each step's metrics read
+    after all five (copies that later steps leave as they were)."""
+    from repro_torch import tracing
+    from repro_torch.train import (TrainHParams, init_train_state,
+                                   make_train_step)
+    from repro_torch.train import train_step as TS
+    cfg, model, batches = _graph_case(cuda)
+    hp = TrainHParams(total_steps=10)
+    eager_state = init_train_state(copy.deepcopy(model))
+    state = init_train_state(model)
+    before = tracing.tallies()
+    step = make_train_step(cfg, hp)
+    got = []
+    for b in batches:
+        state, m = step(state, b)
+        got.append(m)
+    assert _tallies_since(before) == (1, 1, 4)
+    monkeypatch.setattr(TS, "_graphable", lambda device, hp: False)
+    eager = make_train_step(cfg, hp)
+    want = []
+    for b in batches:
+        eager_state, m = eager(eager_state, b)
+        want.append(m)
+    # each step's metrics, kept across the later steps, against the
+    # eager step's of the same index
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.keys() == w.keys()
+        for name in w:
+            assert torch.equal(g[name], w[name]), (i, name)
+    assert state.step == eager_state.step == 5
+    assert state.opt.count == eager_state.opt.count == 5
+    for (name, p), q in zip(state.params.named_parameters(),
+                            eager_state.params.parameters()):
+        assert torch.equal(p, q), name
+        assert torch.equal(state.opt.mu[name], eager_state.opt.mu[name])
+        assert torch.equal(state.opt.nu[name], eager_state.opt.nu[name])
+
+
+@pytest.mark.gpu
+def test_train_step_captures_once_per_batch_shape(cuda):
+    """A shape's first call runs op by op, its second captures and
+    replays, later ones replay; a new shape starts over: its first call
+    op by op, its second a capture of its own."""
+    from repro_torch import tracing
+    from repro_torch.train import (TrainHParams, init_train_state,
+                                   make_train_step)
+    cfg, model, long = _graph_case(cuda, seq=128, steps=4)
+    short = _graph_case(cuda, seq=64, steps=3)[2]
+    step = make_train_step(cfg, TrainHParams())
+    state, before = init_train_state(model), tracing.tallies()
+    for b in long:
+        state, m = step(state, b)
+    assert _tallies_since(before) == (1, 1, 3)
+    for b in short:
+        state, m = step(state, b)
+    assert _tallies_since(before) == (2, 2, 5)
+    assert math.isfinite(float(m["loss"]))
+
+
+@pytest.mark.gpu
+def test_train_step_under_a_profiler_runs_op_by_op(cuda):
+    """A call under torch.profiler releases the graph and runs op by op,
+    its spans and kernels in the trace; the next call without a profiler
+    captures again."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tracing
+    from repro_torch.train import (TrainHParams, init_train_state,
+                                   make_train_step)
+    cfg, model, batches = _graph_case(cuda, steps=4)
+    step = make_train_step(cfg, TrainHParams())
+    state, before = init_train_state(model), tracing.tallies()
+    for b in batches[:2]:
+        state, _ = step(state, b)
+    assert _tallies_since(before) == (1, 1, 1)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, m = step(state, batches[2])
+        float(m["loss"])
+    assert _tallies_since(before) == (2, 1, 1)
+    names = {e.key for e in prof.key_averages()}
+    assert "repro_torch.train.optimizer" in names
+    assert any(n.startswith("repro_torch::flash_attention") for n in names)
+    state, _ = step(state, batches[3])
+    assert _tallies_since(before) == (2, 2, 2)
+    tracing.reset()
 
 
 # ---------------------------------------------- a one-rank NCCL mesh

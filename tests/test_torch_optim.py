@@ -105,3 +105,38 @@ def test_adamw_bf16_moments_track_fp32():
                              weight_decay=0.0)
     assert float(p32["x"].abs().max()) < 0.05
     assert float(p16["x"].abs().max()) < 0.3
+
+
+def _ulps(a: float, b: float) -> float:
+    """|a - b| in float32 ulps of b."""
+    return abs(a - b) / float(np.spacing(np.float32(abs(b)) or
+                                         np.float32(1e-38)))
+
+
+@pytest.mark.parametrize("args", [(100, 10000, 3e-4), (10, 100, 3e-4),
+                                  (1, 1000, 1.0), (0, 10, 0.5)])
+def test_device_counter_rate_equals_the_host_schedule(args):
+    """The train step's rate from its int64 step counter (a 0-d tensor
+    on the device, here the CPU) equals ``cosine_schedule`` of the host
+    int within one float32 ulp, steps 0 to 150."""
+    ctr = torch.zeros(2, dtype=torch.int64)
+    for step in range(151):
+        got = float(P.cosine_schedule(ctr[0], *args))
+        want = float(P.cosine_schedule(step, *args))
+        assert _ulps(got, want) <= 1, (step, got, want)
+        ctr.add_(1)
+
+
+@pytest.mark.parametrize("b1,b2", [(0.9, 0.95), (0.9, 0.999)])
+def test_device_counter_bias_corrections_equal_one_less_b_to_the_t(b1, b2):
+    """AdamW's bias corrections from the counter ``count + 1`` as a 0-d
+    int64 tensor equal 1 - b^t computed from the host count in float32
+    within one ulp, counts 1 to 151; 0-d float32 tensors."""
+    ctr = torch.zeros(2, dtype=torch.int64)
+    for t in range(1, 152):
+        got = P.bias_corrections(ctr[1] + 1, b1, b2)
+        assert all(g.dtype == torch.float32 and g.dim() == 0 for g in got)
+        for g, b in zip(got, (b1, b2)):
+            want = float(np.float32(1) - np.float32(b) ** np.float32(t))
+            assert _ulps(float(g), want) <= 1, (t, float(g), want)
+        ctr.add_(1)

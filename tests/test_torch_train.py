@@ -345,3 +345,134 @@ def test_train_loop_learns_markov_structure():
                                   remat="none"))
     first, last = np.mean(losses[:10]), np.mean(losses[-10:])
     assert last < first - 0.5, (first, last)
+
+
+# ------------------------------------------------ the step's CUDA graph
+def _step_before(cfg, hp, state, batch):
+    """The step as it ran before its counters moved to the device: the
+    rate and AdamW's bias corrections as host floats, through the same
+    float32 update (``adamw._foreach_step``) in groups of 32."""
+    from repro_torch.optim import adamw as A
+    from repro_torch.optim import clip_by_global_norm, cosine_schedule
+    params = dict(state.params.named_parameters())
+    for p in params.values():
+        p.grad = None
+    total, metrics = PM.loss_fn(cfg, state.params, batch,
+                                compute_dtype=hp.compute_dtype,
+                                remat=hp.remat, q_chunk=hp.q_chunk)
+    total.backward()
+    grads, gnorm = clip_by_global_norm(
+        {k: p.grad for k, p in params.items()}, hp.clip_norm)
+    lr = float(cosine_schedule(state.step, hp.warmup_steps, hp.total_steps,
+                               hp.peak_lr))
+    t = torch.tensor(float(state.opt.count + 1), dtype=torch.float32)
+    bc1, bc2 = float(1.0 - 0.9 ** t), float(1.0 - 0.95 ** t)
+    keys = list(params)
+    with torch.no_grad():
+        for i in range(0, len(keys), A._GROUP):
+            group = keys[i:i + A._GROUP]
+            A._foreach_step(*([t[k] for k in group] for t in
+                              (params, grads, state.opt.mu, state.opt.nu)),
+                            lr, 0.9, 0.95, bc1, bc2, 1e-8, hp.weight_decay)
+    state.opt.count += 1
+    state.step += 1
+    return dict({k: v.detach() for k, v in metrics.items()}, grad_norm=gnorm,
+                lr=lr, loss_total=total.detach())
+
+
+@pytest.mark.parametrize("name", ["smollm-135m", "granite-moe-1b-a400m"])
+def test_three_steps_equal_the_step_before_its_device_counters(name):
+    """Three steps of the port's step (rate and bias corrections from
+    its device counter, here on the CPU) against the step as it was
+    with host floats, from the same weights: parameters, both moments,
+    losses and rates within the optimizer tests' rtol 1e-6."""
+    cfg, pcfg, _, _ = _setup(name)
+    hp = PHP(compute_dtype=torch.float32, remat="full", total_steps=10)
+    step = p_step(pcfg, hp)
+    got, want = p_init(_model(name)), p_init(_model(name))
+    for i in range(3):
+        batch = _tb(make_batch(cfg, S, 2 * B, step=i))
+        got, gm = step(got, batch)
+        wm = _step_before(pcfg, hp, want, batch)
+        for k in ("loss", "aux_loss", "loss_total", "grad_norm", "lr"):
+            assert float(gm[k]) == pytest.approx(float(wm[k]), rel=1e-6,
+                                                 abs=1e-12), (i, k)
+    assert (got.step, got.opt.count) == (want.step, want.opt.count) == (3, 3)
+    for k, p in want.params.named_parameters():
+        q = dict(got.params.named_parameters())[k]
+        for a, b in ((q, p), (got.opt.mu[k], want.opt.mu[k]),
+                     (got.opt.nu[k], want.opt.nu[k])):
+            np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(),
+                                       rtol=1e-6, atol=1e-12, err_msg=k)
+
+
+@pytest.mark.parametrize("case", ["defaults", "cpu", "mesh", "grad_accum",
+                                  "gather_once"])
+def test_only_a_plain_single_device_cuda_step_may_replay(case):
+    """The rule the step reads before it captures: a CUDA device, no mesh,
+    one microbatch and no ``gather_once``; anything else runs op by op."""
+    from repro_torch import sharding as shd
+    from repro_torch.train.train_step import _graphable
+    dev = torch.device("cpu" if case == "cpu" else "cuda", 0)
+    hp = PHP(grad_accum=2 if case == "grad_accum" else 1,
+             gather_once=case == "gather_once")
+    with shd.use_mesh(object() if case == "mesh" else None):
+        assert _graphable(dev, hp) == (case == "defaults")
+
+
+def _tally_delta(before):
+    from repro_torch import tracing
+    now = tracing.tallies()
+    return {k: now.get(k, 0) - before.get(k, 0)
+            for k in ("train.graph.eager", "train.graph.capture",
+                      "train.graph.replay")}
+
+
+@pytest.mark.parametrize("grad_accum,traced", [(1, False), (2, False),
+                                               (1, True)])
+def test_cpu_steps_run_op_by_op_and_are_tallied(grad_accum, traced):
+    """On the CPU every call of the step runs op by op, with one
+    microbatch or two, traced or not: each adds one to the tally
+    ``train.graph.eager`` and none to ``capture`` or ``replay``."""
+    from repro_torch import tracing
+    cfg, pcfg, _, bd = _setup("smollm-135m")
+    step = p_step(pcfg, PHP(compute_dtype=torch.float32, remat="none",
+                            grad_accum=grad_accum))
+    state, before = p_init(_model("smollm-135m")), tracing.tallies()
+    if traced:
+        tracing.enable()
+    try:
+        for _ in range(3):
+            state, _ = step(state, _tb(bd))
+        delta = _tally_delta(before)
+    finally:
+        tracing.disable()
+        tracing.reset()
+    assert delta == {"train.graph.eager": 3, "train.graph.capture": 0,
+                     "train.graph.replay": 0}
+
+
+def test_the_graph_is_not_captured_while_tracing():
+    """While tracing is on, a batch shape's second and later calls run op
+    by op as its first did (on the card they would capture and replay)."""
+    from repro_torch import tracing
+    from repro_torch.train.train_step import _StepGraph
+    graph, calls = _StepGraph(), []
+
+    def run(state, batch, ctr):
+        calls.append(batch["tokens"].shape)
+        return {"loss": torch.zeros(())}
+
+    batch = {"tokens": torch.zeros(2, 8, dtype=torch.int64)}
+    before = tracing.tallies()
+    tracing.enable()
+    try:
+        for _ in range(3):
+            graph(run, None, None, batch, None)
+        delta = _tally_delta(before)
+    finally:
+        tracing.disable()
+        tracing.reset()
+    assert len(calls) == 3 and graph.graph is None
+    assert delta == {"train.graph.eager": 3, "train.graph.capture": 0,
+                     "train.graph.replay": 0}
