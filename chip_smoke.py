@@ -1057,8 +1057,9 @@ def fluid_path(dev, smi0):
         return {"ms": ms[2], "batches": ms}
 
     step_eager = stepper_ms(lambda: fl._run(P, R))
-    key = fl._shape_key(P, R)
-    step_graph = stepper_ms(lambda: fl._replay(key, P, R))
+    require(fl._graphs(fl._run, P, R)[1] == "replay",
+            "the stepper's shape has no graph to replay")
+    step_graph = stepper_ms(lambda: fl._graphs(fl._run, P, R))
 
     # BENCH_robust.json's agreement block on the card
     robust = json.loads((ROOT / "BENCH_robust.json").read_text())
@@ -3684,10 +3685,9 @@ def main() -> None:
     # call each, then a probe trace of one small kernel: whether the
     # profiler still sees device time after a trace of this length
     fl, P, R = fluid
-    key = fl._shape_key(P, R)
     emit("fluid_launches",
          eager=launches_per_call(lambda: fl._run(P, R), n=1),
-         graph=launches_per_call(lambda: fl._replay(key, P, R), n=1))
+         graph=launches_per_call(lambda: fl._graphs(fl._run, P, R), n=1))
     ones = torch.ones(1 << 20, device=dev)
     try:
         probe = kernel_device_ms(lambda: ones.sum())

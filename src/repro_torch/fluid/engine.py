@@ -12,7 +12,7 @@ and every op of a step broadcasts over the leading ``[N, M]``. It runs on
 the CUDA card unless the engine was built with ``device="cpu"``; on the
 card a time loop whose input shape an earlier call already had is replayed
 from a CUDA graph, captured on that second sighting; a shape seen once runs
-op by op, so a one-off call pays no capture.
+op by op, so a one-off call pays no capture (``repro_torch.graphs``).
 
 The fluid model mirrors ``ScreeningModel``'s per-fire cost terms
 (duration, energy, uplink serialization, rank blocking, DC composition
@@ -49,6 +49,7 @@ from typing import Dict, List, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import graphs as G
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.placement.plan import PlacementPlan
 from repro_torch.region.hier import regions_view
@@ -59,9 +60,6 @@ from repro_torch.scenario.queueing import q_factor_torch
 # bins), not as an instantaneous NEVER_S cliff, matching the DES's FIFO
 # pipe where early fires during an overload still complete.
 _UPLINK_Q_CLAMP = 0.92
-# CUDA graphs kept per engine, one per repeated input shape (oldest
-# dropped first)
-_GRAPH_CACHE = 8
 
 
 @dataclasses.dataclass
@@ -99,11 +97,9 @@ class FluidEngine:
 
     Shares the engine's (already driven) fire trace, so compiling is
     cheap. ``device`` is where the stepper runs: ``None`` is the CUDA card
-    (an error where there is none), ``"cpu"`` the host. On the card the
-    second ``evaluate`` of a given input shape captures a CUDA graph of
-    the time loop, and later calls of that shape replay it; the first runs
-    op by op. ``evaluations`` counts the calls and ``repeated_shapes``
-    those whose shape an earlier call had.
+    (an error where there is none), ``"cpu"`` the host. ``evaluations``
+    counts the calls, ``repeated_shapes`` those whose shape an earlier
+    call had and ``graph_captures`` the CUDA graphs they captured.
     """
 
     def __init__(self, engine, dt_s: Optional[float] = None,
@@ -246,10 +242,10 @@ class FluidEngine:
                     1.0, self.slide[si] / self.slide[oi])
 
         self._sim = None
-        self._shapes_seen = set()
+        self._graphs = G.Graphs(capacity=8)   # one per repeated shape
         self.evaluations = 0
         self.repeated_shapes = 0
-        self.graph_captures = 0     # CUDA graphs captured by ``evaluate``
+        self.graph_captures = 0
 
     # ------------------------------------------------------------------
     @classmethod
@@ -484,7 +480,6 @@ class FluidEngine:
             u0=f32(np.eye(1, U, 0)[0]),           # [U] one-hot on the farm slot
             rcp_rps=rcp(self.records_per_step), rcp_dt=rcp(self.dt),
             rcp_grid=rcp(self.grid_chips))
-        self._graphs: Dict[tuple, tuple] = {}
 
     def _curve(self, x, soft, hard, rspan):
         # ValueCurve with (v_max, v_min) = (1, 0.1): full value at or
@@ -605,41 +600,6 @@ class FluidEngine:
             ys.append(y)
         return tuple(torch.stack(col, dim=2) for col in zip(*ys))
 
-    @staticmethod
-    def _shape_key(P, R):
-        """The input shape of one ``_run``: every plan and realization
-        tensor's name and shape."""
-        return tuple((k, tuple(v.shape)) for d in (P, R)
-                     for k, v in sorted(d.items()))
-
-    def _replay(self, key, P, R):
-        """``_run`` replayed from the CUDA graph of input shape ``key``,
-        captured at the first call for it: the inputs are copied into the
-        graph's own tensors."""
-        hit = self._graphs.get(key)
-        if hit is None:
-            P0 = {k: v.clone() for k, v in P.items()}
-            R0 = {k: v.clone() for k, v in R.items()}
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(side):      # warm-up, off the graph
-                self._run(P0, R0)
-            torch.cuda.current_stream(self.device).wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                out = self._run(P0, R0)
-            if len(self._graphs) >= _GRAPH_CACHE:
-                self._graphs.pop(next(iter(self._graphs)))
-            hit = self._graphs[key] = (graph, P0, R0, out)
-            self.graph_captures += 1
-        graph, P0, R0, out = hit
-        for k, v in P.items():
-            P0[k].copy_(v)
-        for k, v in R.items():
-            R0[k].copy_(v)
-        graph.replay()
-        return out
-
     # ------------------------------------------------------------- fronts
     def evaluate(self, plans: Sequence[PlacementPlan],
                  realizations: Optional[Mapping[str, np.ndarray]] = None,
@@ -650,11 +610,9 @@ class FluidEngine:
 
         ``realizations`` is the array bundle built by
         :class:`repro_torch.fluid.ensemble.ScenarioEnsemble` (default: the
-        single nominal realization). On the card ``jit=True`` replays a
-        CUDA graph of the whole time loop where an earlier call had the
-        same input shape (capturing it at the first such repeat), and runs
-        op by op on a shape's first sighting; ``jit=False`` always launches
-        the program op by op. On the CPU both run op by op."""
+        single nominal realization). ``jit=True`` runs the time loop by
+        ``repro_torch.graphs``' rule (on the card, a CUDA graph from a
+        shape's second call on); ``jit=False`` always op by op."""
         if self._sim is None:
             self._build_sim()
         real = dict(realizations if realizations is not None
@@ -665,15 +623,15 @@ class FluidEngine:
             device=self.device, dtype=torch.float32)
         plan_arrs = {k: f32(v) for k, v in Z.items()}
         real_arrs = {k: f32(v) for k, v in real.items()}
-        key = self._shape_key(plan_arrs, real_arrs)
-        repeat = key in self._shapes_seen
-        self._shapes_seen.add(key)
         self.evaluations += 1
-        self.repeated_shapes += repeat
+        self.repeated_shapes += (G.shape_key(plan_arrs, real_arrs)
+                                 in self._graphs.seen)
         with _full_fp32():
-            if jit and repeat and self.device.type == "cuda":
-                outs = self._replay(key, plan_arrs, real_arrs)
+            if jit:
+                outs, how = self._graphs(self._run, plan_arrs, real_arrs)
+                self.graph_captures += how == "capture"
             else:
+                self._graphs.note(plan_arrs, real_arrs)
                 outs = self._run(plan_arrs, real_arrs)
         vv, latw, dead = (np.asarray(a.cpu().numpy(), dtype=np.float64)
                           for a in outs)

@@ -321,8 +321,7 @@ def lower_cell(cfg: ArchConfig, shape: ShapeSpec, mesh, *,
             cache_sh = SP.cache_shardings(mesh, cfg, B)
 
             def run():
-                logits, cache = M.prefill(cfg, model, batch, shape.seq_len,
-                                          q_chunk=1024)
+                logits, cache = M.prefill(cfg, model, batch, shape.seq_len)
                 b_ax = shd.batch_axes_for(mesh, B)
                 logits = shd.act_constraint(logits, shd.P(b_ax, "model"))
                 cache = [{k: v.redistribute(*cs[k]) for k, v in c.items()}

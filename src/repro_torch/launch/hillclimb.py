@@ -55,7 +55,7 @@ def rule_override(profile: str, **updates):
 
 
 def run_variant(arch: str, shape_name: str, *, mesh_spec: str = "16x16",
-                accum: Optional[int] = None, q_chunk: int = 512,
+                accum: Optional[int] = None,
                 rules: Optional[Dict] = None, profile: str = "train",
                 label: str = "variant", verbose: bool = True, **hp_kwargs):
     """The cell's report under the variant: one dry run gives its costs
@@ -66,7 +66,7 @@ def run_variant(arch: str, shape_name: str, *, mesh_spec: str = "16x16",
     hp = None
     if shape.kind == "train":
         hp_accum = accum if accum is not None else cfg.grad_accum
-        hp = TrainHParams(grad_accum=hp_accum, q_chunk=q_chunk, **hp_kwargs)
+        hp = TrainHParams(grad_accum=hp_accum, **hp_kwargs)
     ctx = rule_override(profile, **rules) if rules else contextlib.nullcontext()
     with ctx:
         run = DR.lower_cell(cfg, shape, mesh, verbose=verbose, hp=hp)
@@ -88,14 +88,12 @@ def main(argv=None):
     ap.add_argument("--shape", required=True)
     ap.add_argument("--mesh", default="16x16")
     ap.add_argument("--accum", type=int, default=None)
-    ap.add_argument("--q-chunk", type=int, default=512)
     ap.add_argument("--label", default="variant")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     try:
         rep = run_variant(args.arch, args.shape, mesh_spec=args.mesh,
-                          accum=args.accum, q_chunk=args.q_chunk,
-                          label=args.label)
+                          accum=args.accum, label=args.label)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()

@@ -11,9 +11,8 @@ Attention over a whole sequence (forward, prefill, the encoder, the
 decoder's cross-attention) goes through the port's flash attention op
 (``repro_torch::flash_attention``), which on the card runs the flash
 kernel and on the CPU its plain version. The JAX package computes the
-same function with its blockwise ``chunked_attention``; ``q_chunk`` is
-kept in the signatures and changes nothing. Decode reads a cache one
-query at a time and stays plain torch, as in the JAX package.
+same function with its blockwise ``chunked_attention``. Decode reads a
+cache one query at a time and stays plain torch, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -27,8 +26,6 @@ from torch import nn
 from repro_torch import sharding as shd
 from repro_torch import tracing
 from repro_torch.kernels.flash_attention.ops import flash_attention
-
-DEFAULT_Q_CHUNK = 512
 
 
 # ---------------------------------------------------------------------------
@@ -196,7 +193,6 @@ def attention_fwd(attn: Attention, x: torch.Tensor, *, theta: float,
                   causal: bool = True, use_rope: bool = True,
                   kv_override: Optional[Tuple[torch.Tensor,
                                               torch.Tensor]] = None,
-                  q_chunk: int = DEFAULT_Q_CHUNK,
                   q_scale: float = 1.0) -> torch.Tensor:
     """Full-sequence attention (forward / encoder / cross) at positions
     0..S-1. With ``kv_override`` the keys and values are given
@@ -212,8 +208,7 @@ def attention_fwd(attn: Attention, x: torch.Tensor, *, theta: float,
 
 
 def attention_prefill(attn: Attention, x: torch.Tensor, *, theta: float,
-                      use_rope: bool, cache_len: int,
-                      q_chunk: int = DEFAULT_Q_CHUNK, q_scale: float = 1.0):
+                      use_rope: bool, cache_len: int, q_scale: float = 1.0):
     """Like ``attention_fwd`` (causal), and also returns k/v written into
     zeroed caches of ``cache_len`` positions."""
     B, S, _ = x.shape

@@ -204,19 +204,23 @@ def _attn_kw(cfg: ArchConfig) -> dict:
                 q_scale=m * math.sqrt(cfg.head_dim) if m else 1.0)
 
 
-def _embed_inputs(cfg: ArchConfig, model: LM, batch: Batch,
-                  dtype) -> torch.Tensor:
+def _embed(cfg: ArchConfig, model: LM, batch: Batch, dtype,
+           pos: Optional[int] = None) -> torch.Tensor:
+    """The embedded tokens times ``cfg.embedding_multiplier``: over a
+    sequence (``pos`` None) behind the patch stub's projected patches and
+    constrained to the batch; in decode, of the token at ``pos``."""
     h = _scaled(L.embed_tokens(model.embed, batch["tokens"], dtype),
                 cfg.embedding_multiplier)
-    if cfg.frontend == "patch_stub":
+    if cfg.frontend == "patch_stub" and pos is None:
         n = cfg.n_prefix_tokens
         patches = torch.einsum("bnd,de->bne", batch["patches"].to(dtype),
                                L.weight(model.frontend_proj, dtype))
         h = torch.cat([patches, h[:, n:]], dim=1)
     if cfg.positional == "sinusoidal":
         h = h + L.sinusoidal_positions(h.shape[1], cfg.d_model,
+                                       offset=pos or 0,
                                        device=h.device).to(dtype)
-    return shd.constrain_batch(h)
+    return h if pos is not None else shd.constrain_batch(h)
 
 
 def _residual(h: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
@@ -240,52 +244,78 @@ def _logits(cfg: ArchConfig, model: LM, h: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Block application (full sequence: forward / prefill)
+# The layer walker: any layer in any mode
 # ---------------------------------------------------------------------------
-def _apply_block(cfg: ArchConfig, blk: Block, h: torch.Tensor,
-                 aux: torch.Tensor, *, index: int, prefill: bool,
-                 cache_len: int = 0):
-    """Returns (h, aux, the layer's cache or None). The mixer and the
-    feed-forward part, each with its norm and residual add (the part's
-    output times ``cfg.residual_multiplier``), are spans named by their
-    kind (``attn``, ``ssm``, ``mlp``, ``moe``) with ``layer=index``."""
+SEQUENCE, PREFILL, DECODE = "sequence", "prefill", "decode"
+
+
+def _layer(cfg: ArchConfig, blk: nn.Module, h: torch.Tensor, aux, i: int,
+           mode: str, *, enc_h: Optional[torch.Tensor] = None,
+           cache: Optional[Dict[str, torch.Tensor]] = None, pos: int = 0,
+           cache_len: int = 0):
+    """Layer ``i``, a ``Block`` or whisper's ``DecXBlock``, over ``h`` in
+    ``mode``: ``SEQUENCE`` (the forward and the loss), ``PREFILL`` (also
+    the layer's new cache of ``cache_len`` positions) or ``DECODE`` (one
+    token at ``pos``, reading and writing ``cache``) → (h, aux, the
+    layer's cache; None over a sequence). The mixer and the feed-forward
+    part, each with its norm and residual add (the part's output times
+    ``cfg.residual_multiplier``), are spans named by their kind
+    (``attn``, ``ssm``, ``mlp``, ``moe``) with ``layer=i``; whisper's
+    cross-attention sits between them, outside both. Only a sequence or a
+    prefill sums the aux loss (decode gains no add a MoE layer) and ends
+    a ``Block`` group with the batch constraint; whisper's cross keys come
+    from ``enc_h`` there and from the cache in decode."""
     mixer, ff = blk.kind.split("+")
     r = cfg.residual_multiplier
-    new_cache = None
-    with tracing.span(mixer, layer=index) as sp:
+    kw = _attn_kw(cfg)
+    new = None
+    with tracing.span(mixer, layer=i) as sp:
         h = sp.input(h)
         x = blk.ln1(h, cfg.norm_eps)
-        if mixer == "attn":
-            kw = _attn_kw(cfg)
-            if prefill:
-                out, (k, v) = L.attention_prefill(blk.attn, x,
-                                                  cache_len=cache_len, **kw)
-                new_cache = {"k": k, "v": v}
-            else:
-                out = L.attention_fwd(blk.attn, x, causal=True, **kw)
-        elif prefill:
-            out, new_cache = SSM.ssm_fwd(blk.ssm, x, return_state=True)
-        else:
+        if mixer == "ssm" and mode == DECODE:
+            out, new = SSM.ssm_decode(blk.ssm, x, cache)
+        elif mixer == "ssm" and mode == PREFILL:
+            out, new = SSM.ssm_fwd(blk.ssm, x, return_state=True)
+        elif mixer == "ssm":
             out = SSM.ssm_fwd(blk.ssm, x)
+        elif mode == DECODE:
+            out, (k, v) = L.attention_decode(
+                blk.attn, x, (cache["k"], cache["v"]), pos, **kw)
+            new = {**cache, "k": k, "v": v}
+        elif mode == PREFILL:
+            out, (k, v) = L.attention_prefill(blk.attn, x,
+                                              cache_len=cache_len, **kw)
+            new = {"k": k, "v": v}
+        else:
+            out = L.attention_fwd(blk.attn, x, causal=True, **kw)
         h = sp.output(_residual(h, _scaled(out, r)))
-    if ff == "mlp":
-        with tracing.span("mlp", layer=index) as sp:
+    if isinstance(blk, DecXBlock):
+        x = blk.ln_x(h, cfg.norm_eps)
+        if mode == DECODE:
+            y = L.attention_readonly(blk.xattn, x, (cache["xk"], cache["xv"]))
+        else:
+            kx, vx = (torch.einsum("bsd,dhk->bshk", enc_h,
+                                   L.weight(w, enc_h.dtype))
+                      for w in (blk.xattn.wk, blk.xattn.wv))
+            y = L.attention_fwd(blk.xattn, x, causal=False,
+                                kv_override=(kx, vx), **kw)
+            if mode == PREFILL:
+                new.update(xk=kx, xv=vx)
+        h = _residual(h, y)
+    if ff in ("mlp", "moe"):
+        with tracing.span(ff, layer=i) as sp:
             h = sp.input(h)
-            y = blk.mlp(blk.ln2(h, cfg.norm_eps))
+            x = blk.ln2(h, cfg.norm_eps)
+            if ff == "mlp":
+                y, a = blk.mlp(x), None
+            else:
+                y, a = MOE.moe_fwd(blk.moe, x)
             h = sp.output(_residual(h, _scaled(y, r)))
-    elif ff == "moe":
-        with tracing.span("moe", layer=index) as sp:
-            h = sp.input(h)
-            y, a = MOE.moe_fwd(blk.moe, blk.ln2(h, cfg.norm_eps))
-            h = sp.output(_residual(h, _scaled(y, r)))
-            aux = aux + a
-    return h, aux, new_cache
-
-
-def _cross_kv(xattn: L.Attention, enc_h: torch.Tensor):
-    kx = torch.einsum("bsd,dhk->bshk", enc_h, L.weight(xattn.wk, enc_h.dtype))
-    vx = torch.einsum("bsd,dhk->bshk", enc_h, L.weight(xattn.wv, enc_h.dtype))
-    return kx, vx
+            if a is not None and mode != DECODE:
+                aux = aux + a
+    if mode != DECODE and isinstance(blk, Block) and _group_end(cfg, i):
+        h = shd.constrain_batch(h)
+    return h, aux, new
 
 
 def _encoder_fwd(cfg: ArchConfig, model: LM, batch: Batch, dtype,
@@ -303,29 +333,6 @@ def _encoder_fwd(cfg: ArchConfig, model: LM, batch: Batch, dtype,
     for blk in model.enc_blocks:
         h = _remat(functools.partial(layer, blk=blk), remat)(h)
     return model.enc_norm(h, cfg.norm_eps)
-
-
-def _dec_xblock(cfg: ArchConfig, blk: DecXBlock, h: torch.Tensor,
-                enc_h: torch.Tensor, cache_len: Optional[int]):
-    """One whisper decoder layer over a sequence; with ``cache_len`` (the
-    prefill) also its cache."""
-    x = blk.ln1(h, cfg.norm_eps)
-    kw = dict(theta=cfg.rope_theta, use_rope=False)
-    cache = None
-    if cache_len is None:
-        h = _residual(h, L.attention_fwd(blk.attn, x, causal=True, **kw))
-    else:
-        out, (k, v) = L.attention_prefill(blk.attn, x, cache_len=cache_len,
-                                          **kw)
-        h = _residual(h, out)
-    x = blk.ln_x(h, cfg.norm_eps)
-    kx, vx = _cross_kv(blk.xattn, enc_h)
-    h = _residual(h, L.attention_fwd(blk.xattn, x, causal=False,
-                                     kv_override=(kx, vx), **kw))
-    h = _residual(h, blk.mlp(blk.ln2(h, cfg.norm_eps)))
-    if cache_len is not None:
-        cache = {"k": k, "v": v, "xk": kx, "xv": vx}
-    return h, cache
 
 
 # ---------------------------------------------------------------------------
@@ -380,11 +387,10 @@ def _under_mesh(fn, mesh, *args):
 # Forward — logits over the full sequence
 # ---------------------------------------------------------------------------
 def forward(cfg: ArchConfig, model: LM, batch: Batch, *,
-            compute_dtype=torch.bfloat16, remat: str = "none",
-            q_chunk: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
+            compute_dtype=torch.bfloat16, remat: str = "none"
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """→ (logits [B, S, V] float32, aux loss). ``remat`` ("none", "dots"
-    or "full") applies to each layer; ``q_chunk`` changes nothing (the
-    JAX package's query blocking)."""
+    or "full") applies to each layer."""
     h, aux = _trunk(cfg, model, batch, compute_dtype, remat)
     with tracing.span("head") as sp:
         logits = sp.output(_seq_logits(cfg, model, sp.input(h)))
@@ -395,23 +401,16 @@ def _trunk(cfg: ArchConfig, model: LM, batch: Batch, dtype, remat: str
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The layers over the sequence → (h before the final norm, aux
     loss)."""
-    h = _embed_inputs(cfg, model, batch, dtype)
+    h = _embed(cfg, model, batch, dtype)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    if cfg.enc_dec is not None:
-        enc_h = _encoder_fwd(cfg, model, batch, dtype, remat)
+    enc_h = (_encoder_fwd(cfg, model, batch, dtype, remat)
+             if cfg.enc_dec is not None else None)
 
-        def layer(h, enc_h, blk):
-            return _dec_xblock(cfg, blk, h, enc_h, None)[0]
-        for blk in model.blocks:
-            h = _remat(functools.partial(layer, blk=blk), remat)(h, enc_h)
-    else:
-        def layer(h, aux, blk, i):
-            h, aux = _apply_block(cfg, blk, h, aux, index=i,
-                                  prefill=False)[:2]
-            return (shd.constrain_batch(h) if _group_end(cfg, i) else h), aux
-        for i, blk in enumerate(model.blocks):
-            h, aux = _remat(functools.partial(layer, blk=blk, i=i),
-                            remat)(h, aux)
+    def layer(h, aux, enc_h, blk, i):
+        return _layer(cfg, blk, h, aux, i, SEQUENCE, enc_h=enc_h)[:2]
+    for i, blk in enumerate(model.blocks):
+        h, aux = _remat(functools.partial(layer, blk=blk, i=i),
+                        remat)(h, aux, enc_h)
     return h, aux
 
 
@@ -424,8 +423,7 @@ def _seq_logits(cfg: ArchConfig, model: LM, h: torch.Tensor) -> torch.Tensor:
 # Loss
 # ---------------------------------------------------------------------------
 def loss_fn(cfg: ArchConfig, model: LM, batch: Batch, *,
-            compute_dtype=torch.bfloat16, remat: str = "none",
-            q_chunk: int = 512):
+            compute_dtype=torch.bfloat16, remat: str = "none"):
     """Mean next-token cross-entropy over the positions whose label is
     not negative, plus the MoE aux loss → (loss + aux, {"loss",
     "aux_loss", "n_tokens"}), as the JAX package's ``loss_fn``. Each
@@ -478,33 +476,21 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int, dtype,
 # ---------------------------------------------------------------------------
 @torch.no_grad()
 def prefill(cfg: ArchConfig, model: LM, batch: Batch, cache_len: int, *,
-            compute_dtype=torch.bfloat16, q_chunk: int = 512
-            ) -> Tuple[torch.Tensor, Cache]:
+            compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, Cache]:
     """→ (logits [B, V] of the last position, caches of ``cache_len``
     positions). The whole call is the ``serve.prefill`` span."""
     with tracing.span("serve.prefill"):
-        return _prefill(cfg, model, batch, cache_len, compute_dtype)
-
-
-def _prefill(cfg: ArchConfig, model: LM, batch: Batch, cache_len: int,
-             dtype) -> Tuple[torch.Tensor, Cache]:
-    h = _embed_inputs(cfg, model, batch, dtype)
-    caches = []
-    if cfg.enc_dec is not None:
-        enc_h = _encoder_fwd(cfg, model, batch, dtype)
-        for blk in model.blocks:
-            h, c = _dec_xblock(cfg, blk, h, enc_h, cache_len)
-            caches.append(c)
-    else:
+        h = _embed(cfg, model, batch, compute_dtype)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        enc_h = (_encoder_fwd(cfg, model, batch, compute_dtype)
+                 if cfg.enc_dec is not None else None)
+        caches = []
         for i, blk in enumerate(model.blocks):
-            h, aux, c = _apply_block(cfg, blk, h, aux, index=i,
-                                     prefill=True, cache_len=cache_len)
-            if _group_end(cfg, i):
-                h = shd.constrain_batch(h)
+            h, aux, c = _layer(cfg, blk, h, aux, i, PREFILL, enc_h=enc_h,
+                               cache_len=cache_len)
             caches.append(c)
-    with tracing.span("head"):
-        return _logits(cfg, model, h[:, -1:])[:, 0], caches
+        with tracing.span("head"):
+            return _logits(cfg, model, h[:, -1:])[:, 0], caches
 
 
 # ---------------------------------------------------------------------------
@@ -517,40 +503,12 @@ def decode_step(cfg: ArchConfig, model: LM, cache: Cache,
     """token: [B, 1]; pos: the write index → (logits [B, V], caches).
     Attention caches are written at ``pos`` in place; SSM layers get new
     state tensors. The whole call is the ``serve.decode`` span, each
-    layer's parts spans of their kind as in ``_apply_block``."""
+    layer's parts spans of their kind as in ``_layer``."""
     with tracing.span("serve.decode"):
-        return _decode(cfg, model, cache, token, pos, compute_dtype)
-
-
-def _decode(cfg: ArchConfig, model: LM, cache: Cache, token: torch.Tensor,
-            pos: int, dtype) -> Tuple[torch.Tensor, Cache]:
-    h = _scaled(L.embed_tokens(model.embed, token, dtype),
-                cfg.embedding_multiplier)
-    if cfg.positional == "sinusoidal":
-        h = h + L.sinusoidal_positions(1, cfg.d_model, offset=pos,
-                                       device=h.device).to(dtype)
-    r = cfg.residual_multiplier
-    new_caches = []
-    for i, (blk, c) in enumerate(zip(model.blocks, cache)):
-        mixer, ff = blk.kind.split("+")
-        with tracing.span(mixer, layer=i):
-            x = blk.ln1(h, cfg.norm_eps)
-            if mixer == "attn":
-                out, (k, v) = L.attention_decode(
-                    blk.attn, x, (c["k"], c["v"]), pos, **_attn_kw(cfg))
-                new = {**c, "k": k, "v": v}
-            else:
-                out, new = SSM.ssm_decode(blk.ssm, x, c)
-            h = _residual(h, _scaled(out, r))
-        if cfg.enc_dec is not None:
-            x = blk.ln_x(h, cfg.norm_eps)
-            h = _residual(h, L.attention_readonly(blk.xattn, x,
-                                                  (c["xk"], c["xv"])))
-        if ff in ("mlp", "moe"):
-            with tracing.span(ff, layer=i):
-                x = blk.ln2(h, cfg.norm_eps)
-                y = blk.mlp(x) if ff == "mlp" else MOE.moe_fwd(blk.moe, x)[0]
-                h = _residual(h, _scaled(y, r))
-        new_caches.append(new)
-    with tracing.span("head"):
-        return _logits(cfg, model, h)[:, 0], new_caches
+        h = _embed(cfg, model, {"tokens": token}, compute_dtype, pos)
+        new_caches = []
+        for i, (blk, c) in enumerate(zip(model.blocks, cache)):
+            h, _, c = _layer(cfg, blk, h, None, i, DECODE, cache=c, pos=pos)
+            new_caches.append(c)
+        with tracing.span("head"):
+            return _logits(cfg, model, h)[:, 0], new_caches

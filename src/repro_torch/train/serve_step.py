@@ -12,10 +12,10 @@ from repro_torch.models import model as M
 
 
 def make_prefill_step(cfg: ArchConfig, cache_len: int,
-                      compute_dtype=torch.bfloat16, q_chunk: int = 512):
+                      compute_dtype=torch.bfloat16):
     def prefill_step(model: M.LM, batch: M.Batch):
         return M.prefill(cfg, model, batch, cache_len,
-                         compute_dtype=compute_dtype, q_chunk=q_chunk)
+                         compute_dtype=compute_dtype)
     return prefill_step
 
 

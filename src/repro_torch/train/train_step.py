@@ -21,24 +21,24 @@ the state's host ints: the step reads the rate and the bias corrections
 from that counter and advances it in place, so that no host number of
 the step changes from one step to the next. That lets the step replay
 itself on the card: on a CUDA device, without a mesh, with one
-microbatch and without ``gather_once``, a batch shape's first call runs
-op by op, its second captures the whole step (forward with remat,
-backward, clipping, the schedule, AdamW) in one CUDA graph and replays
-it, and later calls of that shape replay the graph, the batch copied
-into the graph's own tensors. While tracing is on (``tracing.enable()``
-or any ``torch.profiler``) the step runs op by op, after releasing the
-graph, so that the spans and the profiler see every op; the next call
-without it captures again. The tallies ``train.graph.*`` of
-``repro_torch.tracing`` count how each call ran.
+microbatch and without ``gather_once``, the whole step (forward with
+remat, backward, clipping, the schedule, AdamW) runs by
+``repro_torch.graphs``' rule, one graph held at a time: a batch shape's
+first call op by op, later ones from one CUDA graph. While tracing is on
+(``tracing.enable()`` or any ``torch.profiler``) the step runs op by op,
+after releasing the graph, so that the spans and the profiler see every
+op; the next call without it captures again. The tallies
+``train.graph.*`` of ``repro_torch.tracing`` count how each call ran.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict
 
 import torch
 
+from repro_torch import graphs as G
 from repro_torch import sharding as shd
 from repro_torch import tracing
 from repro_torch.configs import ArchConfig
@@ -57,7 +57,6 @@ class TrainHParams:
     clip_norm: float = 1.0
     grad_accum: int = 1          # microbatches per step
     remat: str = "full"          # none | dots | full
-    q_chunk: int = 512
     compute_dtype: Any = torch.bfloat16
     # gather the mesh-sharded weights once per step (bf16, serve profile)
     # instead of per layer per microbatch; nothing without a mesh
@@ -73,13 +72,13 @@ def make_train_step(cfg: ArchConfig, hp: TrainHParams):
     parameters and moments are updated in place; on the card the step
     may replay a CUDA graph (the module's docstring says when)."""
     counters = _Counters()
-    graph = _StepGraph()
+    graphs = G.Graphs(capacity=1)     # a pool holds a step's activations
 
     def loss_and_backward(model: M.LM, mb: M.Batch):
         with tracing.span("train.forward"):
             total, metrics = M.loss_fn(cfg, model, mb,
                                        compute_dtype=hp.compute_dtype,
-                                       remat=hp.remat, q_chunk=hp.q_chunk)
+                                       remat=hp.remat)
         with tracing.span("train.backward"):
             total.backward()
         return total.detach(), {k: v.detach() for k, v in metrics.items()}
@@ -136,11 +135,23 @@ def make_train_step(cfg: ArchConfig, hp: TrainHParams):
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         device = next(state.params.parameters()).device
         ctr = counters.at(device, state)
-        if _graphable(device, hp):
-            metrics = graph(run, warm, state, batch, ctr)
-        else:
-            tracing.tally("train.graph.eager")
+        how = "eager"
+        if not _graphable(device, hp):
             metrics = run(state, batch, ctr)
+        elif tracing.enabled():
+            graphs.release()
+            graphs.note(batch)
+            metrics = run(state, batch, ctr)
+        else:
+            out, how = graphs(lambda b: run(state, b, ctr), batch,
+                              warm=lambda b: warm(state, b),
+                              bound=_state_tensors(state))
+            metrics = out if how == "eager" else {
+                k: v.clone() for k, v in out.items()}
+        if how == "capture":
+            tracing.tally("train.graph.capture")
+        tracing.tally("train.graph." + ("eager" if how == "eager"
+                                        else "replay"))
         counters.advanced(device)
         opt = AdamWState(mu=state.opt.mu, nu=state.opt.nu,
                          count=state.opt.count + 1)
@@ -188,80 +199,6 @@ def _state_tensors(state: TrainState) -> tuple:
     both moments."""
     return (*state.params.parameters(), *state.opt.mu.values(),
             *state.opt.nu.values())
-
-
-class _StepGraph:
-    """The whole step as one CUDA graph, for one batch shape and one
-    state's tensors at a time (a graph's memory pool holds a step's
-    activations, so a second graph would hold them twice)."""
-
-    def __init__(self):
-        self.seen: set = set()         # batch shapes that ran op by op
-        self.key = None                # the graph's batch shape
-        self.tensors: tuple = ()       # the state tensors it updates
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.batch: Dict[str, torch.Tensor] = {}
-        self.out: Dict[str, torch.Tensor] = {}
-
-    def __call__(self, run, warm, state, batch, ctr):
-        key = _shape_key(batch)
-        if tracing.enabled():
-            self.release()
-            self.seen.add(key)
-            tracing.tally("train.graph.eager")
-            return run(state, batch, ctr)
-        if not (self.graph is not None and key == self.key
-                and _same(self.tensors, _state_tensors(state))):
-            self.release()
-            if key not in self.seen:
-                self.seen.add(key)
-                tracing.tally("train.graph.eager")
-                return run(state, batch, ctr)
-            self.capture(run, warm, state, batch, ctr, key)
-        for k, v in batch.items():
-            self.batch[k].copy_(v)
-        self.graph.replay()
-        tracing.tally("train.graph.replay")
-        return {k: v.clone() for k, v in self.out.items()}
-
-    def capture(self, run, warm, state, batch, ctr, key) -> None:
-        """The graph of ``run`` on copies of ``batch``, after a warm-up
-        of the forward and backward on the capture's side stream."""
-        dev = ctr.device
-        static = {k: v.clone() for k, v in batch.items()}
-        # the op-by-op steps' cached blocks belong to another stream: give
-        # them back first, so that the warm-up and then the graph's pool
-        # (entering the capture empties the cache again) take their place
-        # rather than room beside them
-        torch.cuda.empty_cache()
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):          # warm-up, off the graph
-            warm(state, static)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=side):
-            out = run(state, static, ctr)
-        self.graph, self.batch, self.out = graph, static, out
-        self.key, self.tensors = key, _state_tensors(state)
-        tracing.tally("train.graph.capture")
-
-    def release(self) -> None:
-        """Drops the graph and returns its pool to the card."""
-        if self.graph is None:
-            return
-        self.graph = self.key = None
-        self.batch, self.out, self.tensors = {}, {}, ()
-        torch.cuda.empty_cache()
-
-
-def _shape_key(batch: Dict[str, torch.Tensor]) -> tuple:
-    """The input shape of one step: every batch tensor's name and shape."""
-    return tuple((k, tuple(v.shape)) for k, v in sorted(batch.items()))
-
-
-def _same(a: tuple, b: tuple) -> bool:
-    return len(a) == len(b) and all(x is y for x, y in zip(a, b))
 
 
 def _microbatches(batch: Dict[str, torch.Tensor], n: int):
@@ -320,7 +257,7 @@ def _gathered_step(cfg: ArchConfig, hp: TrainHParams, model: M.LM,
             with tracing.span("train.forward"):
                 total, metrics = M.loss_fn(cfg, model, mb,
                                            compute_dtype=hp.compute_dtype,
-                                           remat=hp.remat, q_chunk=hp.q_chunk)
+                                           remat=hp.remat)
             with tracing.span("train.backward"):
                 gs = torch.autograd.grad(total, list(work.values()))
             for k, g in zip(work, gs):

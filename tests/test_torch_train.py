@@ -359,7 +359,7 @@ def _step_before(cfg, hp, state, batch):
         p.grad = None
     total, metrics = PM.loss_fn(cfg, state.params, batch,
                                 compute_dtype=hp.compute_dtype,
-                                remat=hp.remat, q_chunk=hp.q_chunk)
+                                remat=hp.remat)
     total.backward()
     grads, gnorm = clip_by_global_norm(
         {k: p.grad for k, p in params.items()}, hp.clip_norm)
@@ -452,27 +452,31 @@ def test_cpu_steps_run_op_by_op_and_are_tallied(grad_accum, traced):
                      "train.graph.replay": 0}
 
 
-def test_the_graph_is_not_captured_while_tracing():
-    """While tracing is on, a batch shape's second and later calls run op
-    by op as its first did (on the card they would capture and replay)."""
+def test_the_graph_is_not_captured_while_tracing(monkeypatch):
+    """While tracing is on, a step that may replay (here the rule patched
+    true on the CPU) runs its batch shape's second and later calls op by
+    op as its first, never through the graphs: three calls tally
+    ``train.graph.eager`` 3 (on the card they would capture and
+    replay)."""
+    from repro_torch import graphs as G
     from repro_torch import tracing
-    from repro_torch.train.train_step import _StepGraph
-    graph, calls = _StepGraph(), []
+    from repro_torch.train import train_step as TS
 
-    def run(state, batch, ctr):
-        calls.append(batch["tokens"].shape)
-        return {"loss": torch.zeros(())}
-
-    batch = {"tokens": torch.zeros(2, 8, dtype=torch.int64)}
-    before = tracing.tallies()
+    def no_graph(*args, **kwargs):
+        raise AssertionError("the step went to its graphs while tracing")
+    monkeypatch.setattr(TS, "_graphable", lambda device, hp: True)
+    monkeypatch.setattr(G.Graphs, "__call__", no_graph)
+    cfg, pcfg, _, bd = _setup("smollm-135m")
+    step = p_step(pcfg, PHP(compute_dtype=torch.float32, remat="none"))
+    state, before = p_init(_model("smollm-135m")), tracing.tallies()
     tracing.enable()
     try:
         for _ in range(3):
-            graph(run, None, None, batch, None)
+            state, _ = step(state, _tb(bd))
         delta = _tally_delta(before)
     finally:
         tracing.disable()
         tracing.reset()
-    assert len(calls) == 3 and graph.graph is None
+    assert state.step == 3
     assert delta == {"train.graph.eager": 3, "train.graph.capture": 0,
                      "train.graph.replay": 0}
