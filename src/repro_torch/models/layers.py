@@ -17,7 +17,7 @@ cache one query at a time and stays plain torch, as in the JAX package.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -239,21 +239,31 @@ def _decode_values(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def attention_decode(attn: Attention, x: torch.Tensor, cache_kv, pos: int,
-                     *, theta: float, use_rope: bool = True,
-                     q_scale: float = 1.0):
+def attention_decode(attn: Attention, x: torch.Tensor, cache_kv,
+                     pos: Union[int, torch.Tensor], *, theta: float,
+                     use_rope: bool = True, q_scale: float = 1.0):
     """Single-token decode. x: [B, 1, D]; cache k/v: [B, Smax, KV, dh];
-    pos: the write index (tokens 0..pos-1 are valid). Writes k/v at pos
-    into the cache tensors in place and returns them."""
+    pos: the write index (tokens 0..pos-1 are valid), an int or a 0-d
+    integer tensor on x's device, which a CUDA graph reads anew at each
+    replay (nothing of it comes to the host). Writes k/v at pos into the
+    cache tensors in place and returns them."""
     dtype = x.dtype
     k_cache, v_cache = cache_kv
     Smax = k_cache.shape[1]
-    positions = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
+    positions = torch.as_tensor(pos, dtype=torch.int64,
+                                device=x.device).reshape(1, 1)
     q, k, v = attn.qkv(x, positions, theta, use_rope, q_scale)
-    k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
-    v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
+    if shd._is_dtensor(k_cache):
+        # DTensor's index_copy_ breaks a cache sharded on the sequence
+        # (the dry-run's long-context decode): its callers write at an int
+        k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
+        v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
+    else:
+        k_cache.index_copy_(1, positions[0], k.to(k_cache.dtype))
+        v_cache.index_copy_(1, positions[0], v.to(v_cache.dtype))
     scores = _decode_scores(q, k_cache).float()
-    invalid = torch.arange(Smax, device=x.device)[None, None, None, :] > pos
+    invalid = (torch.arange(Smax, device=x.device)[None, None, None, :]
+               > positions)
     scores = scores.masked_fill(invalid, -1e30)
     probs = torch.softmax(scores, dim=-1).to(dtype)
     return attn.out(_decode_values(probs, v_cache)), (k_cache, v_cache)

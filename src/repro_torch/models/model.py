@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -205,7 +205,7 @@ def _attn_kw(cfg: ArchConfig) -> dict:
 
 
 def _embed(cfg: ArchConfig, model: LM, batch: Batch, dtype,
-           pos: Optional[int] = None) -> torch.Tensor:
+           pos: Union[int, torch.Tensor, None] = None) -> torch.Tensor:
     """The embedded tokens times ``cfg.embedding_multiplier``: over a
     sequence (``pos`` None) behind the patch stub's projected patches and
     constrained to the batch; in decode, of the token at ``pos``."""
@@ -218,7 +218,7 @@ def _embed(cfg: ArchConfig, model: LM, batch: Batch, dtype,
         h = torch.cat([patches, h[:, n:]], dim=1)
     if cfg.positional == "sinusoidal":
         h = h + L.sinusoidal_positions(h.shape[1], cfg.d_model,
-                                       offset=pos or 0,
+                                       offset=0 if pos is None else pos,
                                        device=h.device).to(dtype)
     return h if pos is not None else shd.constrain_batch(h)
 
@@ -251,12 +251,13 @@ SEQUENCE, PREFILL, DECODE = "sequence", "prefill", "decode"
 
 def _layer(cfg: ArchConfig, blk: nn.Module, h: torch.Tensor, aux, i: int,
            mode: str, *, enc_h: Optional[torch.Tensor] = None,
-           cache: Optional[Dict[str, torch.Tensor]] = None, pos: int = 0,
-           cache_len: int = 0):
+           cache: Optional[Dict[str, torch.Tensor]] = None,
+           pos: Union[int, torch.Tensor] = 0, cache_len: int = 0):
     """Layer ``i``, a ``Block`` or whisper's ``DecXBlock``, over ``h`` in
     ``mode``: ``SEQUENCE`` (the forward and the loss), ``PREFILL`` (also
     the layer's new cache of ``cache_len`` positions) or ``DECODE`` (one
-    token at ``pos``, reading and writing ``cache``) → (h, aux, the
+    token at ``pos``, an int or a 0-d device tensor, updating ``cache``
+    in place) → (h, aux, the
     layer's cache; None over a sequence). The mixer and the feed-forward
     part, each with its norm and residual add (the part's output times
     ``cfg.residual_multiplier``), are spans named by their kind
@@ -498,12 +499,15 @@ def prefill(cfg: ArchConfig, model: LM, batch: Batch, cache_len: int, *,
 # ---------------------------------------------------------------------------
 @torch.no_grad()
 def decode_step(cfg: ArchConfig, model: LM, cache: Cache,
-                token: torch.Tensor, pos: int, *,
+                token: torch.Tensor, pos: Union[int, torch.Tensor], *,
                 compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, Cache]:
-    """token: [B, 1]; pos: the write index → (logits [B, V], caches).
-    Attention caches are written at ``pos`` in place; SSM layers get new
-    state tensors. The whole call is the ``serve.decode`` span, each
-    layer's parts spans of their kind as in ``_layer``."""
+    """token: [B, 1]; pos: the write index, an int or a 0-d integer
+    tensor on the device (the same bits either way) → (logits [B, V],
+    caches). Every cache tensor is updated in place (attention's k/v
+    written at ``pos``, the SSM's conv window and state) and returned
+    itself, so that a CUDA graph of the call keeps its caches in its own
+    tensors. The whole call is the ``serve.decode`` span, each layer's
+    parts spans of their kind as in ``_layer``."""
     with tracing.span("serve.decode"):
         h = _embed(cfg, model, {"tokens": token}, compute_dtype, pos)
         new_caches = []

@@ -166,7 +166,9 @@ def init_ssm_cache(batch: int, d_model: int, cfg: SSMConfig, dtype,
 
 
 def ssm_decode(ssm: SSM, x: torch.Tensor, cache: Dict[str, torch.Tensor]):
-    """Single-token state update. x: [B, 1, d_model] → (out, new cache)."""
+    """Single-token state update. x: [B, 1, d_model] → (out, cache): the
+    new conv window and state are written into ``cache``'s own tensors,
+    which are returned."""
     cfg = ssm.cfg
     dtype = x.dtype
     Bb = x.shape[0]
@@ -184,7 +186,7 @@ def ssm_decode(ssm: SSM, x: torch.Tensor, cache: Dict[str, torch.Tensor]):
         conv_out = conv_out + torch.cat([ssm.conv_x_bias, ssm.conv_BC_bias]
                                         ).to(dtype)
     conv_out = F.silu(conv_out)
-    new_conv = window[:, 1:]
+    cache["conv"].copy_(window[:, 1:])
 
     xs = conv_out[..., :din].reshape(Bb, H, P)
     B_ = conv_out[..., din: din + G * N].reshape(Bb, G, N)
@@ -201,5 +203,6 @@ def ssm_decode(ssm: SSM, x: torch.Tensor, cache: Dict[str, torch.Tensor]):
     y = torch.einsum("bhpn,bhn->bhp", h, Ch.float()).to(dtype)
     y = y + xs * cast(ssm.D, dtype)[None, :, None]
     out = _gated_out(ssm, y.reshape(Bb, 1, din), z, dtype)
-    return out, {"conv": new_conv, "h": h.to(dtype)}
+    cache["h"].copy_(h)
+    return out, {"conv": cache["conv"], "h": cache["h"]}
 

@@ -15,6 +15,8 @@ the CPU.
   measured ratios were 0.906, 0.786 and 0.848 (PERF.md).
 * The collectives are reported under ``CollectiveStats``' kinds, the
   nonzero ones, and agree with ``CommDebugMode``'s count.
+* Decode cells run batch- and sequence-sharded and write their caches
+  in place.
 * The fake impls give the real ops' output shapes and types.
 * ``hillclimb.rule_override`` restores the rules, also on an error.
 * ``dryrun.main`` runs a production cell (smollm-135m prefill_32k on a
@@ -170,6 +172,32 @@ def test_collective_counts_equal_comm_debug_mode(world):
                             verbose=False)
     assert comm.get_total_counts() == sum(run.collectives.counts.values())
     assert comm.get_total_counts() > 0
+
+
+DECODE_CELLS = [("qwen3-1.7b", 8), ("qwen3-1.7b", 1), ("mamba2-1.3b", 8),
+                ("mamba2-1.3b", 1)]
+
+
+@pytest.fixture(scope="module")
+def decode_runs(world):
+    from repro_torch.launch.mesh import make_dev_mesh
+    mesh = make_dev_mesh(2, 2, device_type="cpu")
+    return {(a, B): DR.lower_cell(get_arch(a).reduced(),
+                                  ShapeSpec("decode", 64, B, "decode"), mesh,
+                                  verbose=False)
+            for a, B in DECODE_CELLS}
+
+
+@pytest.mark.parametrize("arch,batch", DECODE_CELLS)
+def test_decode_cells_update_the_caches_in_place(decode_runs, arch, batch):
+    """A decode cell runs on the fake mesh, batch-sharded (8) and with the
+    cache sharded on the sequence (1, long context), and writes every
+    cache in place: its only new storage is the logits, the same for the
+    SSM (conv window and state) as for attention (k and v at ``pos``)."""
+    run = decode_runs[(arch, batch)]
+    assert run.flops > 0 and run.arg_bytes > 0
+    assert run.collectives.counts["all-reduce"] > 0
+    assert run.out_bytes == decode_runs[("qwen3-1.7b", batch)].out_bytes > 0
 
 
 def _fake_vs_real(fn, *args):

@@ -1290,6 +1290,71 @@ def test_train_step_under_a_profiler_runs_op_by_op(cuda):
     tracing.reset()
 
 
+
+# ------------------------------------------ the decode step's CUDA graph
+def _serve_tallies_since(before):
+    from repro_torch import tracing
+    now = tracing.tallies()
+    return tuple(now.get(f"serve.graph.{k}", 0) - before.get(
+        f"serve.graph.{k}", 0) for k in ("eager", "capture", "replay"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["granite-moe-1b-a400m", "mamba2-1.3b"])
+def test_decode_graph_equals_eager_bit_for_bit(cuda, name):
+    """Three requests through one decode step, bf16: two of one prompt
+    length (the first's step 1 captured and replayed, the rest replayed;
+    the second replayed from its first step, under a CUDA-only
+    torch.profiler) and one of another, under a profiler that records
+    the host's ops with their shapes (with attention caches, a new key:
+    its first step captured; mamba2's caches have no length, so it
+    replays). Every step's logits and caches equal ``M.decode_step`` op
+    by op on copies of the same prefill caches, bit for bit; the tallies
+    count one capture a key, no call op by op, and every call replayed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tracing
+    from repro_torch.train import make_decode_step, make_prefill_step
+    cfg = get_arch(name).reduced()
+    if name.startswith("granite"):
+        cfg = dataclasses.replace(cfg, d_head=64)
+    model = M.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    steps, batch, dt = 5, 4, torch.bfloat16
+    decode = make_decode_step(cfg, dt)
+    profilers = {1: dict(activities=[ProfilerActivity.CUDA]),
+                 2: dict(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA],
+                         record_shapes=True)}
+    before = tracing.tallies()
+    for r, prompt in enumerate((40, 40, 72)):
+        prefill = make_prefill_step(cfg, prompt + steps, dt)
+        toks = torch.as_tensor(make_batch(cfg, prompt, batch, r)["tokens"],
+                               device=cuda)
+        logits, cache = prefill(model, {"tokens": toks})
+        ref = [{k: v.clone() for k, v in c.items()} for c in cache]
+        tok = logits.argmax(-1)[:, None]
+        prof = profile(**profilers[r]) if r in profilers else None
+        if prof is not None:
+            prof.start()
+        try:
+            for j in range(steps):
+                got, cache = decode(model, cache, tok, prompt + j)
+                want, ref = M.decode_step(cfg, model, ref, tok, prompt + j,
+                                          compute_dtype=dt)
+                assert torch.equal(got, want), (r, j)
+                for i, (g, w) in enumerate(zip(cache, ref)):
+                    for k in w:
+                        assert torch.equal(g[k], w[k]), (r, j, i, k)
+                tok = got.argmax(-1)[:, None]
+        finally:
+            if prof is not None:
+                prof.stop()
+        if prof is not None:
+            assert prof.profiler.kineto_results.events(), r
+    keys = 2 if any(k.startswith("attn") for k in cfg.layer_kinds()) else 1
+    assert _serve_tallies_since(before) == (0, keys, 3 * steps)
+
+
 # ---------------------------------------------- a one-rank NCCL mesh
 @pytest.fixture
 def nccl_mesh(cuda):

@@ -3,8 +3,8 @@ key runs (``eager``, ``capture``, ``replay``), which graphs are held and
 which is dropped first, ``note`` and ``release``; and ``Graphs`` called
 on the CPU, which runs every call op by op. The captures and replays
 themselves run on the card (``tests/test_torch_gpu.py``: the train
-step's and the fluid engine's graphs against their op-by-op runs, bit for
-bit)."""
+step's, the decode step's and the fluid engine's graphs against their
+op-by-op runs, bit for bit)."""
 from __future__ import annotations
 
 import pytest
@@ -35,6 +35,14 @@ CASES = {
                        ((1,), (), "replay", [(j,) for j in range(1, 9)]),
                        ((0,), (), "capture", [(j,) for j in range(2, 9)]
                         + [(0,)])]),
+    # a decode step, which notes each call's key first: its first call
+    # (the warm-up) captures, every request's steps replay with no new
+    # capture, another model's parameters capture again
+    "decode_step": (1, [("note", X), (KX, (P,), "capture", [KX]),
+                        ("note", X), (KX, (P,), "replay", [KX]),
+                        ("note", X), (KX, (P,), "replay", [KX]),
+                        ("note", X), (KX, (Q,), "capture", [KX]),
+                        ("note", X), (KX, (Q,), "replay", [KX])]),
     "note": (1, [("note", X), (KX, (), "capture", [KX]),
                  (KX, (), "replay", [KX])]),
     "release": (8, [(A, (), "eager", []), (A, (), "capture", [A]),

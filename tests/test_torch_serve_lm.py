@@ -29,7 +29,7 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.launch.serve import serve_demo
 from repro_torch.models import model as PM
-from repro_torch.train import greedy_generate
+from repro_torch.train import greedy_generate, make_decode_step
 
 torch.set_num_threads(2)
 
@@ -107,6 +107,79 @@ def test_greedy_tokens_equal_jax(name, unbounded_capacity):
     assert got.dtype == torch.int32 and got.shape == (B, 6)
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     assert len(cache) == cfg.n_layers
+
+
+# attention + MoE, Mamba-2, the hybrid of both with a shared expert, and
+# whisper's sinusoidal positions and cross-attention caches
+DECODE_ARCHS = ["granite-moe-1b-a400m", "mamba2-1.3b", "granite-4.0-h-small",
+                "whisper-medium"]
+
+
+def _prefilled(name, prompt=12, cache_len=24, dtype=torch.bfloat16):
+    """A reduced model of ``name``, its caches after a prefill of
+    ``prompt`` tokens, and the prefill's pick."""
+    cfg = port_arch(name).reduced()
+    model = PM.init_params(cfg, torch.Generator().manual_seed(0))
+    batch = _torch_batch(make_batch(cfg, prompt, B, step=0))
+    logits, cache = PM.prefill(cfg, model, batch, cache_len,
+                               compute_dtype=dtype)
+    return cfg, model, cache, logits.argmax(-1)[:, None]
+
+
+def _copied(cache):
+    return [{k: v.clone() for k, v in c.items()} for c in cache]
+
+
+def _assert_same_caches(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        for k in w:
+            assert torch.equal(g[k], w[k]), k
+
+
+@pytest.mark.parametrize("name", DECODE_ARCHS)
+def test_decode_pos_as_a_tensor_equals_an_int(name, unbounded_capacity):
+    """``decode_step`` with the write index as a 0-d int64 tensor gives
+    the logits and caches of the int, bit for bit, for three steps."""
+    cfg, model, cache, tok = _prefilled(name)
+    by_int, by_tensor = cache, _copied(cache)
+    for pos in range(12, 15):
+        want, by_int = PM.decode_step(cfg, model, by_int, tok, pos)
+        got, by_tensor = PM.decode_step(cfg, model, by_tensor, tok,
+                                        torch.tensor(pos))
+        assert torch.equal(got, want), pos
+        _assert_same_caches(by_tensor, by_int)
+        tok = want.argmax(-1)[:, None]
+
+
+@pytest.mark.parametrize("name", DECODE_ARCHS)
+def test_decode_step_updates_the_caches_it_is_given(name,
+                                                    unbounded_capacity):
+    """``make_decode_step`` over 8 steps equals ``M.decode_step`` (an int
+    write index) and returns the very cache tensors it was given, updated
+    in place, the SSM's conv window and state included; each call is
+    tallied, on the CPU as op by op."""
+    from repro_torch import tracing
+    cfg, model, cache, tok = _prefilled(name)
+    tensors = [t for c in cache for t in c.values()]
+    ref = _copied(cache)
+    step = make_decode_step(cfg)
+    before = tracing.tallies()
+    for pos in range(12, 20):
+        logits, cache = step(model, cache, tok, pos)
+        want, ref = PM.decode_step(cfg, model, ref, tok, pos)
+        assert torch.equal(logits, want), pos
+        returned = [t for c in cache for t in c.values()]
+        assert len(returned) == len(tensors)
+        assert all(a is b for a, b in zip(returned, tensors))
+        _assert_same_caches(cache, ref)
+        tok = want.argmax(-1)[:, None]
+    now = tracing.tallies()
+    assert {k: now.get(k, 0) - before.get(k, 0) for k in (
+        "serve.graph.eager", "serve.graph.capture", "serve.graph.replay")} \
+        == {"serve.graph.eager": 8, "serve.graph.capture": 0,
+            "serve.graph.replay": 0}
 
 
 @pytest.mark.parametrize("name", ARCHS)
